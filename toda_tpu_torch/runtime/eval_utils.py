@@ -1,0 +1,96 @@
+"""Evaluation harness: predict sweep on the device + host metric computation.
+
+Counterpart of ``toda_tpu/runtime/eval_utils.py`` (``make_predict_step``,
+``compute_recall``, ``eval_one_epoch``) in one process. The cross-process
+merge of detections and recall counters comes with the distributed-runtime
+slice.
+"""
+
+import time
+
+import numpy as np
+
+from ..utils import box_utils
+
+
+def make_predict_step(bundle):
+    """batch (numpy) -> dict of (B, K) detection tensors on the bundle's device."""
+
+    def predict_step(batch):
+        return bundle.predict(bundle.to_device(batch))
+
+    return predict_step
+
+
+def compute_recall(pred_boxes, pred_mask, gt_boxes, thresh_list):
+    """Per-frame recall counters (host). gt_boxes (M, 8) padded, class id in
+    the last column."""
+    gt_valid = gt_boxes[:, -1] > 0
+    gts = gt_boxes[gt_valid][:, :7]
+    out = {f"recall_{t}": 0 for t in thresh_list}
+    out["gt"] = len(gts)
+    if len(gts) == 0:
+        return out
+    preds = pred_boxes[pred_mask.astype(bool)][:, :7]
+    if len(preds):
+        best = box_utils.boxes_bev_iou_cpu(gts, preds).max(axis=1)
+        for t in thresh_list:
+            out[f"recall_{t}"] = int((best > t).sum())
+    return out
+
+
+def eval_one_epoch(bundle, loader, dataset, class_names, logger=None, predict_step=None):
+    """Predict every batch of ``loader``, then recall and the dataset metric.
+
+    Returns (result_dict, det_annos). result_dict carries the dataset's
+    metrics, ``recall/<t>``, ``sec_per_example`` (steady state, from the
+    second batch on, host clock around device work that ends in a copy to the
+    host) and ``first_batch_sec``."""
+    predict_step = predict_step or make_predict_step(bundle)
+    thresh_list = bundle.post_cfg.get("RECALL_THRESH_LIST", [0.3, 0.5, 0.7])
+    det_annos = []
+    recall = {f"recall_{t}": 0 for t in thresh_list}
+    recall["gt"] = 0
+    t0 = time.time()
+    n_frames = 0
+    first_batch_sec = None
+    steady_t0, steady_frames = None, 0
+    for batch in loader:
+        if first_batch_sec is not None and steady_t0 is None:
+            steady_t0 = time.time()
+        dets = predict_step(batch)
+        dets = {k: v.cpu().numpy() for k, v in dets.items()}  # waits for the device
+        b = dets["pred_boxes"].shape[0]
+        n_frames += b
+        if first_batch_sec is None:
+            first_batch_sec = time.time() - t0
+        else:
+            steady_frames += b
+        pred_dicts = [
+            {k: dets[k][i] for k in ("pred_boxes", "pred_scores", "pred_labels", "pred_mask")}
+            for i in range(b)
+        ]
+        if "gt_boxes" in batch:
+            for i in range(b):
+                r = compute_recall(dets["pred_boxes"][i], dets["pred_mask"][i],
+                                   np.asarray(batch["gt_boxes"][i]), thresh_list)
+                for k in r:
+                    recall[k] += r[k]
+        det_annos.extend(dataset.generate_prediction_dicts(batch, pred_dicts, class_names))
+    if steady_frames > 0:
+        sec_per_ex = (time.time() - steady_t0) / steady_frames
+    else:
+        sec_per_ex = (time.time() - t0) / max(n_frames, 1)
+
+    if logger:
+        logger.info("eval: %.4f sec/example steady-state over %d frames "
+                    "(first batch: %.1fs)", sec_per_ex, n_frames, first_batch_sec or 0.0)
+    result_str, result_dict = dataset.evaluation(det_annos, class_names)
+    if logger:
+        logger.info("\n%s", result_str)
+    result_dict.update(
+        {f"recall/{t}": recall[f"recall_{t}"] / max(recall["gt"], 1) for t in thresh_list})
+    result_dict["sec_per_example"] = sec_per_ex
+    result_dict["first_batch_sec"] = first_batch_sec or 0.0
+    return result_dict, det_annos
+
