@@ -6,7 +6,6 @@ stated."""
 from types import SimpleNamespace
 
 import numpy as np
-import pytest
 import torch
 
 from toda_tpu.config import EDict as JEDict
@@ -76,10 +75,29 @@ def test_test_mode_batches_equal_jax():
     assert tuple(ds.grid_size) == (64, 64, 8)
 
 
-def test_training_mode_is_refused():
-    _, pcfg = both_cfgs()
-    with pytest.raises(NotImplementedError):
-        build_dataloader(pcfg.DATA_CONFIG, pcfg.CLASS_NAMES, batch_size=2, training=True)
+def test_training_batches_equal_jax():
+    """Training mode: the same shuffled frames, augmentation draws
+    (flip, rotation, scaling from the global numpy RNG, seeded alike),
+    outside-box removal, point sampling and padding; the training loader
+    drops the last partial batch."""
+    jcfg, pcfg = both_cfgs()
+    np.random.seed(0)
+    _, jloader, _ = j_build_dataloader(jcfg.DATA_CONFIG, jcfg.CLASS_NAMES, batch_size=4,
+                                       training=True)
+    jbatches = list(jloader)
+    np.random.seed(0)
+    _, loader, _ = build_dataloader(pcfg.DATA_CONFIG, pcfg.CLASS_NAMES, batch_size=4,
+                                    training=True)
+    pbatches = list(loader)
+    assert len(pbatches) == len(jbatches) == 1
+    for jb, pb in zip(jbatches, pbatches):
+        assert set(pb) == set(jb) - {"aug_vector"}  # the stage-2 vector comes later
+        for k in ("points", "points_mask", "gt_boxes"):
+            assert jb[k].dtype == pb[k].dtype, k
+            np.testing.assert_array_equal(pb[k], jb[k], err_msg=k)
+        assert pb["frame_id"] == jb["frame_id"]
+        assert pb["augmentation_params"] == jb["augmentation_params"]
+        assert (pb["gt_boxes"][..., -1] > 0).any()
 
 
 def _fake_dets(rng, scenes, names, k=12):

@@ -193,12 +193,13 @@ def _conv_case(kind, act, seed):
         ny, nx, cout = 40, 32, 16
         coords, mask = _sorted_coords(rng, 1024, ny, nx, int(1024 * 0.9))
         idx = jps.bev_neighbor_idx_sorted(coords, mask, coords, mask, (ny, nx), 1)
+        inv = idx[:, ::-1]
         out_mask, stride = mask, 1
     else:
         ny, nx, cout = 48, 48, 32
         coords, mask = _sorted_coords(rng, 1024, ny, nx, int(1024 * 0.9))
         oc, out_mask = jps.bev_downsample_sites(coords, mask, 2, 1024, (ny, nx))
-        idx, _ = jps.bev_down_tables(coords, mask, oc, out_mask, (ny, nx), (24, 24))
+        idx, inv = jps.bev_down_tables(coords, mask, oc, out_mask, (ny, nx), (24, 24))
         stride = 2
     x = np.asarray(rng.standard_normal((nz * c, 1024)), np.float32) * np.asarray(mask)[None]
     w = (0.3 * rng.standard_normal((3, 3, 3, c, cout))).astype(np.float32)
@@ -208,6 +209,7 @@ def _conv_case(kind, act, seed):
     else:
         scale, shift = np.ones(c, np.float32), np.zeros(c, np.float32)
     return dict(x=x, w=w, scale=scale, shift=shift, idx=np.asarray(idx),
+                inv=np.ascontiguousarray(inv), mask=np.asarray(mask),
                 out_mask=np.asarray(out_mask), nz=nz, stride=stride, act=act)
 
 

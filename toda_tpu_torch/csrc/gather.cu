@@ -1,4 +1,5 @@
-// Row scatter-add (K4) and voxelizer unpack (K5) for Hopper (sm_90a).
+// Row scatter-add (K4), voxelizer unpack (K5) and row gather (K6) for Hopper
+// (sm_90a).
 //
 // Built by toda_tpu_torch/ops/_build.py into a shared library with a plain C
 // interface; toda_tpu_torch/ops/gather.py binds it with ctypes. Every launcher
@@ -23,6 +24,15 @@
 // (cell, [feat..., count]) and the output is row-major (cell, cpad), so this
 // is one elementwise pass: mean = sum / max(round(count), 1), zero pad,
 // cast. Bound: bytes.
+//
+// K6 gather_rows replaces pallas_gather.py _gather_kernel (public
+// gather_rows), the exact VJP of the dense scatter. The TPU kernel DMAs a
+// span window of table rows per 128-row output block and selects with
+// one-hot MXU products; here each thread copies one 16-byte chunk of one
+// output row (4- or 2-byte words where the row width or the pointers are
+// not 16-byte aligned) from its table row, or writes zeros for idx == -1.
+// Neighbouring threads copy neighbouring chunks of a row. Bound: bytes (the
+// gathered rows read once, the output written once).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -77,6 +87,19 @@ __global__ void unpack_pillars_kernel(const float* __restrict__ sums,
   out[t] = from_f32<T>(v);
 }
 
+// One thread per word of the (m, row_words) output.
+template <typename V>
+__global__ void gather_rows_kernel(const V* __restrict__ table,
+                                   const int32_t* __restrict__ idx,
+                                   V* __restrict__ out, int64_t m, int64_t row_words) {
+  int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= m * row_words) return;
+  int64_t i = t / row_words;
+  int64_t k = t - i * row_words;
+  int32_t j = idx[i];
+  out[t] = j >= 0 ? table[(int64_t)j * row_words + k] : V();
+}
+
 constexpr int kThreads = 256;
 
 inline unsigned blocks_for(int64_t n) {
@@ -114,6 +137,27 @@ int toda_unpack_pillars(const float* sums, void* out, int64_t ncell, int c,
       unpack_pillars_kernel<__nv_bfloat16>
           <<<blocks_for(ncell * cpad), kThreads, 0, stream>>>(
               sums, (__nv_bfloat16*)out, ncell, c, cpad);
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
+// table: (n, row_bytes) bytes per row; out: (m, row_bytes). word: 16, 4 or
+// 2, dividing row_bytes and both pointers' alignment.
+int toda_gather_rows(const void* table, const int32_t* idx, void* out, int64_t m,
+                     int64_t row_bytes, int word, cudaStream_t stream) {
+  const int64_t words = row_bytes / word;
+  if (m * words > 0) {
+    const unsigned blocks = blocks_for(m * words);
+    if (word == 16) {
+      gather_rows_kernel<uint4><<<blocks, kThreads, 0, stream>>>(
+          (const uint4*)table, idx, (uint4*)out, m, words);
+    } else if (word == 4) {
+      gather_rows_kernel<uint32_t><<<blocks, kThreads, 0, stream>>>(
+          (const uint32_t*)table, idx, (uint32_t*)out, m, words);
+    } else {
+      gather_rows_kernel<uint16_t><<<blocks, kThreads, 0, stream>>>(
+          (const uint16_t*)table, idx, (uint16_t*)out, m, words);
     }
   }
   return (int)cudaGetLastError();

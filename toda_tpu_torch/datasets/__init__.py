@@ -19,16 +19,27 @@ class DataLoader:
     """Minimal loader over a DatasetTemplate.
 
     Test mode: frames in order, the last batch filled up with the first
-    frames. prefetch > 0 runs __getitem__ + collate on a background thread
-    with a bounded queue, overlapping host preprocessing with the device step.
+    frames. Training: frames in the permutation of ``RandomState(0)`` (the
+    JAX loader's at seed 0, epoch 0), the last partial batch dropped.
+    prefetch > 0 runs __getitem__ + collate on a background thread with a
+    bounded queue, overlapping host preprocessing with the device step.
     """
 
-    def __init__(self, dataset, batch_size, prefetch=2):
+    def __init__(self, dataset, batch_size, training=False, prefetch=2):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.training = training
         self.prefetch = prefetch
 
+    def _indices(self):
+        n = len(self.dataset)
+        if self.training:
+            return np.random.RandomState(0).permutation(n)
+        return np.arange(n)
+
     def __len__(self):
+        if self.training:
+            return len(self.dataset) // self.batch_size
         return (len(self.dataset) + self.batch_size - 1) // self.batch_size
 
     def _make_batch(self, idx, b):
@@ -39,7 +50,7 @@ class DataLoader:
         return self.dataset.collate_batch(samples)
 
     def __iter__(self):
-        idx = np.arange(len(self.dataset))
+        idx = self._indices()
         nb = len(self)
         if self.prefetch <= 0 or nb <= 1:
             for b in range(nb):
@@ -92,9 +103,11 @@ def build_dataset(dataset_cfg, class_names, training=False, root_path=None, logg
 
 def build_dataloader(dataset_cfg, class_names, batch_size, dist=False, root_path=None,
                      workers=0, logger=None, training=False):
-    """Returns (dataset, dataloader, sampler_like) like ``toda_tpu``'s."""
+    """Returns (dataset, dataloader, sampler_like) like ``toda_tpu``'s
+    (training: shuffled, last partial batch dropped)."""
     if dist:
         raise NotImplementedError("the distributed loader is not ported yet")
     dataset = build_dataset(dataset_cfg, class_names, training, root_path, logger)
-    loader = DataLoader(dataset, batch_size=batch_size, prefetch=workers if workers > 0 else 2)
+    loader = DataLoader(dataset, batch_size=batch_size, training=training,
+                        prefetch=workers if workers > 0 else 2)
     return dataset, loader, loader

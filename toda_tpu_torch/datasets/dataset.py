@@ -1,16 +1,17 @@
-"""Dataset template: test-mode host pipeline ending in static-shape padded arrays.
+"""Dataset template: host pipeline ending in static-shape padded arrays.
 
 The port's own copy of ``toda_tpu/datasets/dataset.py`` (``prepare_data``,
-``pad_to_static``, ``collate_batch``, ``generate_prediction_dicts``) for the
-test-mode path: class filter -> point encoding -> processors -> pad to static
-caps (points -> NUM_POINTS, gt_boxes -> MAX_GT_BOXES) with validity masks ->
-dense (B, ...) batches. The training path (augmentor, empty-frame resampling)
-comes with the training slice.
+``pad_to_static``, ``collate_batch``,
+``generate_prediction_dicts``): (training: augment) -> class filter -> point
+encoding -> processors -> (training: resample a frame left without boxes) ->
+pad to static caps (points -> NUM_POINTS, gt_boxes -> MAX_GT_BOXES) with
+validity masks -> dense (B, ...) batches.
 """
 
 import numpy as np
 
 from ..utils import common_utils
+from .augmentor.data_augmentor import DataAugmentor
 from .point_feature_encoder import PointFeatureEncoder
 from .processor.data_processor import DataProcessor
 
@@ -18,10 +19,6 @@ from .processor.data_processor import DataProcessor
 class DatasetTemplate:
     def __init__(self, dataset_cfg=None, class_names=None, training=False, root_path=None,
                  logger=None):
-        if training:
-            raise NotImplementedError(
-                "the PyTorch port's datasets run in test mode only; training data "
-                "augmentation is not ported yet")
         self.dataset_cfg = dataset_cfg
         self.training = training
         self.class_names = class_names
@@ -30,6 +27,12 @@ class DatasetTemplate:
         self.point_cloud_range = np.array(dataset_cfg.POINT_CLOUD_RANGE, dtype=np.float32)
         self.point_feature_encoder = PointFeatureEncoder(
             dataset_cfg.POINT_FEATURE_ENCODING, point_cloud_range=self.point_cloud_range
+        )
+        self.data_augmentor = (
+            DataAugmentor(self.root_path, dataset_cfg.DATA_AUGMENTOR, self.class_names,
+                          logger=logger)
+            if self.training and dataset_cfg.get("DATA_AUGMENTOR", None)
+            else None
         )
         self.data_processor = DataProcessor(
             dataset_cfg.DATA_PROCESSOR,
@@ -46,7 +49,7 @@ class DatasetTemplate:
 
     @property
     def mode(self):
-        return "test"
+        return "train" if self.training else "test"
 
     def __len__(self):
         raise NotImplementedError
@@ -55,7 +58,12 @@ class DatasetTemplate:
         raise NotImplementedError
 
     def prepare_data(self, data_dict):
-        """class filter -> encode -> process -> pad to static shapes."""
+        """(augment) -> class filter -> encode -> process -> pad to static shapes."""
+        if self.training and self.data_augmentor is not None:
+            if "gt_boxes" not in data_dict:
+                raise KeyError("training needs gt_boxes")
+            data_dict = self.data_augmentor.forward(data_dict)
+
         if data_dict.get("gt_boxes", None) is not None:
             selected = common_utils.keep_arrays_by_name(data_dict["gt_names"], self.class_names)
             data_dict["gt_boxes"] = data_dict["gt_boxes"][selected]
@@ -71,6 +79,17 @@ class DatasetTemplate:
         if data_dict.get("points", None) is not None:
             data_dict = self.point_feature_encoder.forward(data_dict)
         data_dict = self.data_processor.forward(data_dict=data_dict)
+
+        if self.training and len(data_dict.get("gt_boxes", [])) == 0:
+            # a frame left without boxes: draw another one (bounded, so a
+            # class list that matches nothing fails instead of recursing)
+            self._empty_resamples = getattr(self, "_empty_resamples", 0) + 1
+            if self._empty_resamples > 128:
+                raise RuntimeError(
+                    f"{self._empty_resamples} consecutive empty-gt resamples: no training "
+                    f"sample yields gt boxes for class_names={self.class_names}")
+            return self.__getitem__(np.random.randint(len(self)))
+        self._empty_resamples = 0
         return self.pad_to_static(data_dict)
 
     def pad_to_static(self, data_dict):
@@ -86,6 +105,7 @@ class DatasetTemplate:
             )
         data_dict.pop("gt_names", None)
         data_dict.pop("use_lead_xyz", None)
+        data_dict.pop("replay_params", None)
         return data_dict
 
     @staticmethod

@@ -1,7 +1,7 @@
 """Host-side data processing pipeline (numpy) + voxelization *configuration*.
 
 The port's own copy of ``toda_tpu/datasets/processor/data_processor.py``, cut
-to the processors the synthetic test-mode pipeline runs.
+to the processors the synthetic pipeline runs, in test and train mode.
 `transform_points_to_voxels` only *records* the voxelization config (grid
 size, caps); the pillar voxelizer runs on the device inside the model
 (``toda_tpu_torch/ops/pillar_sparse.py``). The host pipeline ends at padded
@@ -12,7 +12,7 @@ from functools import partial
 
 import numpy as np
 
-from ...utils import common_utils
+from ...utils import box_utils, common_utils
 
 
 class DataProcessor:
@@ -34,6 +34,14 @@ class DataProcessor:
         if data_dict.get("points", None) is not None:
             mask = common_utils.mask_points_by_range(data_dict["points"], self.point_cloud_range)
             data_dict["points"] = data_dict["points"][mask]
+        if data_dict.get("gt_boxes", None) is not None and config.REMOVE_OUTSIDE_BOXES \
+                and self.training:
+            mask = box_utils.mask_boxes_outside_range_numpy(
+                data_dict["gt_boxes"], self.point_cloud_range,
+                min_num_corners=config.get("min_num_corners", 1))
+            data_dict["gt_boxes"] = data_dict["gt_boxes"][mask]
+            if "gt_names" in data_dict:
+                data_dict["gt_names"] = data_dict["gt_names"][mask]
         return data_dict
 
     def shuffle_points(self, data_dict=None, config=None):

@@ -1,4 +1,4 @@
-"""Synthetic LiDAR scenes — the hermetic eval fixture.
+"""Synthetic LiDAR scenes — the hermetic train and eval fixture.
 
 The port's own copy of ``toda_tpu/datasets/synthetic/synthetic_dataset.py``
 (without the camera rendering and the gt database, which only training and

@@ -1,4 +1,4 @@
-"""Dense BEV backbone: strided conv stages + upsample-and-concat, eval mode.
+"""Dense BEV backbone: strided conv stages + upsample-and-concat.
 
 Counterpart of ``toda_tpu/models/backbones_2d/base_bev_backbone.py`` in NCHW.
 Module names mirror the flax ones (``block{i}_down_conv`` ...). Two flax
@@ -9,7 +9,9 @@ conventions are reproduced explicitly:
     x[i] * W[s-1-a]; ``weights.state_dict_from_flax`` flips the kernel so that
     ``nn.ConvTranspose2d`` computes the same.
 The blocks compute in the input's dtype (bf16 when the 3D backbone runs in
-bf16, as in JAX); the output is f32.
+bf16, as in JAX); the output is f32. BatchNorm follows flax: in training, f32
+batch statistics with the biased variance and running statistics updated
+with momentum 0.99 (``bn_apply``).
 """
 
 import torch
@@ -36,17 +38,35 @@ def conv_same(x, conv):
     return F.conv2d(same_pad(x, k, s), w, b, stride=s)
 
 
-def bn_eval(x, bn):
-    """Inference BatchNorm as one per-channel affine in x's dtype."""
-    if bn.training:
-        raise NotImplementedError("batch-statistics BatchNorm comes with the training slice")
-    scale = bn.weight * torch.rsqrt(bn.running_var + bn.eps)
-    shift = bn.bias - bn.running_mean * scale
-    return x * scale.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
+FLAX_MOMENTUM = 0.99  # flax BatchNorm momentum: running = 0.99 * running + 0.01 * batch
+
+
+def bn_apply(x, bn):
+    """flax ``nn.BatchNorm`` on NCHW x with ``bn``'s parameters and buffers.
+
+    Eval: the running statistics as one per-channel affine in x's dtype.
+    Training: mean and the biased variance E[x^2] - mean^2 (floored at 0) of
+    x in f32, ``(x - mean) * rsqrt(var + eps) * weight + bias`` in f32 cast to
+    x's dtype, and running = 0.99 * running + 0.01 * batch statistic (not
+    ``F.batch_norm``'s unbiased running variance)."""
+    if not bn.training:
+        scale = bn.weight * torch.rsqrt(bn.running_var + bn.eps)
+        shift = bn.bias - bn.running_mean * scale
+        return x * scale.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
+    xf = x.float()
+    mean = xf.mean((0, 2, 3))
+    var = torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean, min=0.0)
+    with torch.no_grad():
+        m = FLAX_MOMENTUM
+        bn.running_mean.copy_(m * bn.running_mean + (1 - m) * mean)
+        bn.running_var.copy_(m * bn.running_var + (1 - m) * var)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    y = (xf - mean[:, None, None]) * mul[:, None, None] + bn.bias[:, None, None]
+    return y.to(x.dtype)
 
 
 def make_bn(c):
-    return nn.BatchNorm2d(c, eps=1e-3, momentum=0.01)
+    return nn.BatchNorm2d(c, eps=1e-3, momentum=1 - FLAX_MOMENTUM)
 
 
 class BaseBEVBackbone(nn.Module):
@@ -82,11 +102,11 @@ class BaseBEVBackbone(nn.Module):
         ups = []
         for i, n in enumerate(self.layer_nums):
             for name in [f"block{i}_down"] + [f"block{i}_layer{j}" for j in range(n)]:
-                x = torch.relu(bn_eval(conv_same(x, getattr(self, f"{name}_conv")),
+                x = torch.relu(bn_apply(conv_same(x, getattr(self, f"{name}_conv")),
                                        getattr(self, f"{name}_bn")))
             deconv = getattr(self, f"deblock{i}_deconv")
             u = F.conv_transpose2d(x, deconv.weight.to(x.dtype), stride=deconv.stride)
-            ups.append(torch.relu(bn_eval(u, getattr(self, f"deblock{i}_bn"))))
+            ups.append(torch.relu(bn_apply(u, getattr(self, f"deblock{i}_bn"))))
         x = torch.cat(ups, dim=1) if len(ups) > 1 else ups[0]
         batch_dict["spatial_features_2d"] = x.float()
         return batch_dict

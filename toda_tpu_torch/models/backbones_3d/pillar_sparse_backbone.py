@@ -1,20 +1,24 @@
-"""BEV-sparse / z-dense residual 3D backbone (CenterPoint-Res), eval mode.
+"""BEV-sparse / z-dense residual 3D backbone (CenterPoint-Res).
 
 Counterpart of ``toda_tpu/models/backbones_3d/pillar_sparse_backbone.py``
 (``_PillarBackboneBase`` :338, ``PillarResBackBone8x`` :500) on the port's
 row-major activations (B*P, nz, C). Layers chain their RAW conv outputs with a
 pending BatchNorm affine (scale, shift, relu): the next fused conv (kernel K1,
 ``ops/fused_conv.py``) applies it to the rows it gathers, and a residual
-block's join applies it once. Parameter and buffer names mirror the flax tree
-(``weights.state_dict_from_flax``).
+block's join applies it once. In training mode the affine comes from the
+batch statistics and gradients flow back through the fused conv's backward
+kernels (dx and dW) into the statistics. Parameter and buffer names mirror
+the flax tree (``weights.state_dict_from_flax``).
 """
 
 import torch
 from torch import nn
 
-from ...ops.fused_conv import fused_bnconv9, out_depth
+from ...ops.fused_conv import fused_bnconv9_ad, out_depth
+from ..backbones_2d.base_bev_backbone import FLAX_MOMENTUM
 from ...ops.pillar_sparse import (
     bev_downsample_sites,
+    bev_inv_down_idx_batched,
     bev_neighbor_idx_sorted_batched,
     fold_idx,
     pillars_to_dense_batched,
@@ -23,8 +27,11 @@ from ...ops.pillar_sparse import (
 
 
 class MaskedBatchNormT(nn.Module):
-    """BatchNorm over valid pillars x z (``MaskedBatchNormT`` :128), in
-    inference form: the running statistics become one per-channel affine."""
+    """BatchNorm over valid pillars x z (``MaskedBatchNormT`` :128) as one
+    per-channel affine for the next layer to apply. Training: f32 batch
+    statistics of the valid rows (biased variance E[x^2] - mean^2, floored at
+    0), running statistics updated with flax momentum 0.99; eval: the running
+    statistics."""
 
     def __init__(self, num_features, eps=1e-3):
         super().__init__()
@@ -35,12 +42,25 @@ class MaskedBatchNormT(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
         self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
 
-    def affine(self):
-        """(scale, shift) f32 with y = x * scale + shift."""
-        if self.training:
-            raise NotImplementedError("batch-statistics BatchNorm comes with the training slice")
-        inv = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return inv.float().contiguous(), (self.bias - self.running_mean * inv).float().contiguous()
+    def affine(self, x, maskf):
+        """(scale, shift) f32 with y = x * scale + shift, for x (M, nz, C)
+        and its row mask maskf (M,). In training they carry gradients back
+        to x through the batch statistics."""
+        if not self.training:
+            inv = torch.rsqrt(self.running_var + self.eps) * self.weight
+            return (inv.float().contiguous(),
+                    (self.bias - self.running_mean * inv).float().contiguous())
+        n = torch.clamp(maskf.sum(dtype=torch.float32) * x.shape[1], min=1.0)
+        xf = torch.where(maskf[:, None, None], x, torch.zeros((), dtype=x.dtype,
+                                                              device=x.device)).float()
+        mean = xf.sum((0, 1)) / n
+        var = torch.clamp((xf * xf).sum((0, 1)) / n - mean * mean, min=0.0)
+        with torch.no_grad():
+            m = FLAX_MOMENTUM
+            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        return inv.contiguous(), (self.bias - mean * inv).contiguous()
 
 
 def identity_affine(c, device):
@@ -71,10 +91,10 @@ class PillarConvLayer(nn.Module):
         nn.init.normal_(self.kernel, std=(2.0 / (27 * in_channels)) ** 0.5)
         self.bn = MaskedBatchNormT(out_channels)
 
-    def forward(self, x, idxf, affine):
-        out = fused_bnconv9(x, affine[0], affine[1], self.kernel.to(x.dtype).contiguous(),
-                            idxf, self.z_stride, affine[2])
-        sc, sh = self.bn.affine()
+    def forward(self, x, idxf, invf, out_maskf, affine):
+        out = fused_bnconv9_ad(x, affine[0], affine[1], self.kernel.to(x.dtype).contiguous(),
+                               idxf, invf, self.z_stride, affine[2])
+        sc, sh = self.bn.affine(out, out_maskf)
         return out, (sc, sh, self.use_relu)
 
 
@@ -92,9 +112,9 @@ class PillarResBlock(nn.Module):
         else:
             self.proj_kernel = None
 
-    def forward(self, x, idxf, maskf, affine):
-        raw1, aff1 = self.conv1(x, idxf, affine)
-        raw2, aff2 = self.conv2(raw1, idxf, aff1)
+    def forward(self, x, idxf, invf, maskf, affine):
+        raw1, aff1 = self.conv1(x, idxf, invf, maskf, affine)
+        raw2, aff2 = self.conv2(raw1, idxf, invf, maskf, aff1)
         identity = apply_affine(x, affine, maskf)
         if self.proj_kernel is not None:
             identity = identity @ self.proj_kernel.to(identity.dtype)
@@ -139,21 +159,29 @@ class PillarResBackBone8x(nn.Module):
         bt, p = mask.shape
         bev_shape = (ny, nx)
         maskf = mask.reshape(-1)
+        # the inverse tables feed only the input-gradient kernels
+        grad = torch.is_grad_enabled()
         idxf = fold_idx(bev_neighbor_idx_sorted_batched(coords, mask, coords, mask,
                                                         bev_shape, 1), p)
-        x, aff = self.stage1(x, idxf, maskf, identity_affine(x.shape[-1], x.device))
+        # submanifold: the inverse of tap t is column 8 - t of the same table
+        invf = idxf.flip(1).contiguous() if grad else None
+        x, aff = self.stage1(x, idxf, invf, maskf, identity_affine(x.shape[-1], x.device))
         for si in range(2, self.num_stages + 1):
             p_in, p_out = coords.shape[1], self.caps[si - 1]
             new_coords, new_mask = bev_downsample_sites(coords, mask, 2, p_out, bev_shape)
+            coarse = (-(-bev_shape[0] // 2), -(-bev_shape[1] // 2))
             nbr = bev_neighbor_idx_sorted_batched(coords, mask, new_coords, new_mask,
                                                   bev_shape, 2)
-            x, aff = getattr(self, f"down{si}")(x, fold_idx(nbr, p_in), aff)
+            inv = fold_idx(bev_inv_down_idx_batched(new_coords, new_mask, coords, mask, coarse),
+                           p_out) if grad else None
             coords, mask = new_coords, new_mask
             maskf = mask.reshape(-1)
-            bev_shape = (-(-bev_shape[0] // 2), -(-bev_shape[1] // 2))
+            x, aff = getattr(self, f"down{si}")(x, fold_idx(nbr, p_in), inv, maskf, aff)
+            bev_shape = coarse
             idxf = fold_idx(bev_neighbor_idx_sorted_batched(coords, mask, coords, mask,
                                                             bev_shape, 1), p_out)
-            x, aff = getattr(self, f"stage{si}")(x, idxf, maskf, aff)
+            invf = idxf.flip(1).contiguous() if grad else None
+            x, aff = getattr(self, f"stage{si}")(x, idxf, invf, maskf, aff)
         x = apply_affine(x, aff, maskf)
         cur_nz, c = x.shape[1], x.shape[2]
         dense = pillars_to_dense_batched(x.reshape(bt, -1, cur_nz, c), coords, mask, bev_shape)

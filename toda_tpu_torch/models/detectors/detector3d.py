@@ -1,15 +1,14 @@
-"""Config-driven detector assembly and its inference surface.
+"""Config-driven detector assembly and its training and inference surface.
 
 Counterpart of ``toda_tpu/models/detectors/detector3d.py``: ``DatasetMeta``,
 the ``Detector3D`` path for point-consuming backbones (the backbone owns its
-voxelization), and ``DetectorBundle.predict`` / ``post_processing`` (the
-CenterHead branch, :720-743). Detector families other than CenterPoint-Res
-come in later slices.
+voxelization), ``DetectorBundle.loss`` / ``head_loss`` (the CenterHead
+branch, :540-567, :616-644) and ``predict`` / ``post_processing`` (:720-743).
+Detector families other than CenterPoint-Res come in later slices.
 """
 
 from dataclasses import dataclass
 
-import numpy as np
 import torch
 from torch import nn
 
@@ -18,6 +17,7 @@ from ..backbones_2d.base_bev_backbone import BaseBEVBackbone
 from ..backbones_2d.map_to_bev.height_compression import HeightCompression
 from ..backbones_3d.pillar_sparse_backbone import PillarResBackBone8x
 from ..dense_heads.center_head import CenterHead
+from ...weights import init_like_flax_
 
 
 @dataclass(frozen=True)
@@ -76,27 +76,44 @@ class Detector3D(nn.Module):
 
 
 class DetectorBundle:
-    """The detector module on its device plus its inference surface."""
+    """The detector module on its device plus its training and inference
+    surface. The module is initialised as the JAX package initialises it
+    (``weights.init_like_flax_``) from ``seed``."""
 
-    def __init__(self, model_cfg, num_class, dataset, device):
+    def __init__(self, model_cfg, num_class, dataset, device, seed=0):
         self.model_cfg = model_cfg
         self.num_class = num_class
         self.device = device
         self.meta = DatasetMeta.from_dataset(dataset)
-        self.module = Detector3D(model_cfg, self.meta).to(device).eval()
+        self.module = init_like_flax_(Detector3D(model_cfg, self.meta), seed).to(device).eval()
         self.post_cfg = model_cfg.get("POST_PROCESSING", {})
 
     def to_device(self, batch):
-        """Model inputs of a numpy batch as tensors on the bundle's device."""
-        return {
-            "points": torch.as_tensor(np.asarray(batch["points"]), dtype=torch.float32,
-                                      device=self.device),
-            "points_mask": torch.as_tensor(np.asarray(batch["points_mask"]), dtype=torch.bool,
-                                           device=self.device),
-        }
+        """Model inputs (and ``gt_boxes`` when the batch has them) of a batch
+        of numpy arrays or tensors, as tensors on the bundle's device."""
+        dtypes = {"points": torch.float32, "points_mask": torch.bool,
+                  "gt_boxes": torch.float32}
+        return {k: torch.as_tensor(batch[k], dtype=dt, device=self.device)
+                for k, dt in dtypes.items() if k in batch}
+
+    def head_loss(self, out, gt_boxes):
+        """(total, tb) detection loss of the forward outputs (CenterHead)."""
+        return self.module.dense_head.get_loss(out, gt_boxes)
+
+    def loss(self, batch_dict):
+        """Forward in training mode (batch statistics; BatchNorm running
+        statistics updated) and the loss: (total, tb dict of scalar
+        tensors). Differentiable in the module's parameters."""
+        if not self.module.training:
+            self.module.train()
+        out = self.module(batch_dict)
+        return self.head_loss(out, batch_dict["gt_boxes"])
 
     def forward(self, batch_dict):
-        """Raw forward outputs (backbone features and head maps)."""
+        """Raw forward outputs (backbone features and head maps), in eval
+        mode and under ``inference_mode``: nothing is saved for autograd."""
+        if self.module.training:
+            self.module.eval()
         with torch.inference_mode():
             return self.module(batch_dict)
 
@@ -130,6 +147,6 @@ class DetectorBundle:
         return self.module.dense_head.generate_predicted_boxes(out, max_obj=max_obj)
 
 
-def build_detector(model_cfg, num_class, dataset, device):
+def build_detector(model_cfg, num_class, dataset, device, seed=0):
     return DetectorBundle(model_cfg=model_cfg, num_class=num_class, dataset=dataset,
-                          device=device)
+                          device=device, seed=seed)

@@ -1,12 +1,14 @@
-"""Row scatter-add (kernel K4) and the voxelizer unpack (kernel K5).
+"""Row scatter-add (kernel K4), the voxelizer unpack (kernel K5) and the row
+gather (kernel K6).
 
 Counterparts of ``toda_tpu/ops/pallas_gather.py``: ``scatter_rows_add``
-(:1143, TPU kernel ``_scatter_kernel`` :925) and ``unpack_pillars_t`` (:1251,
-TPU kernel ``_unpack_kernel`` :1200). The CUDA kernels are in
+(:1143, TPU kernel ``_scatter_kernel`` :925), ``unpack_pillars_t`` (:1251,
+TPU kernel ``_unpack_kernel`` :1200) and ``gather_rows`` (:1121, TPU kernel
+``_gather_kernel`` :97). The CUDA kernels are in
 ``toda_tpu_torch/csrc/gather.cu``; its header says what bounds each one on the
 H100 and why it is built as it is. Each wrapper runs its plain PyTorch version
 for a tensor on the CPU, launches its kernel for a CUDA tensor, and counts its
-launches in ``<wrapper>.launches``.
+launches in ``LAUNCHES[<wrapper name>]``.
 """
 
 import ctypes
@@ -17,6 +19,7 @@ from . import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _bound = False
+LAUNCHES = {"scatter_rows_add": 0, "unpack_pillars": 0, "gather_rows": 0}
 
 
 def _lib():
@@ -28,6 +31,8 @@ def _lib():
         lib.toda_scatter_rows_add.restype = i32
         lib.toda_unpack_pillars.argtypes = [p, p, i64, i32, i32, i32, p]
         lib.toda_unpack_pillars.restype = i32
+        lib.toda_gather_rows.argtypes = [p, p, p, i64, i64, i32, p]
+        lib.toda_gather_rows.restype = i32
         _bound = True
     return lib
 
@@ -70,11 +75,9 @@ def scatter_rows_add(g, idx, n):
     err = _lib().toda_scatter_rows_add(g.data_ptr(), idx.data_ptr(), out.data_ptr(),
                                        m, w, _DTYPE_CODE[g.dtype], _stream(g))
     _build.check(err, "scatter_rows_add")
-    scatter_rows_add.launches += 1
+    LAUNCHES["scatter_rows_add"] += 1
     return out
 
-
-scatter_rows_add.launches = 0
 
 
 def unpack_pillars_plain(sums, c, cpad, dtype):
@@ -108,8 +111,43 @@ def unpack_pillars(sums, c, cpad, dtype):
     err = _lib().toda_unpack_pillars(sums.data_ptr(), out.data_ptr(), ncell, c, cpad,
                                      _DTYPE_CODE[dtype], _stream(sums))
     _build.check(err, "unpack_pillars")
-    unpack_pillars.launches += 1
+    LAUNCHES["unpack_pillars"] += 1
     return out
 
 
-unpack_pillars.launches = 0
+
+def gather_rows_plain(table, idx):
+    """Plain PyTorch K6: out[i] = table[idx[i]], a zero row where idx is -1."""
+    safe = torch.where(idx >= 0, idx.long(), 0)
+    return torch.where((idx >= 0)[:, None], table[safe], torch.zeros((), dtype=table.dtype,
+                                                                    device=table.device))
+
+
+def gather_rows(table, idx):
+    """out[i] = table[idx[i]], a zero row where idx[i] == -1.
+
+    Args:
+        table: (N, W) float32 or bfloat16, contiguous.
+        idx: (M,) int32 in [-1, N).
+    Returns (M, W) in table's dtype.
+    """
+    if table.device.type == "cpu":
+        return gather_rows_plain(table, idx)
+    if not table.is_cuda or table.dtype not in _DTYPE_CODE or table.dim() != 2 \
+            or not table.is_contiguous():
+        raise ValueError(f"gather_rows: table must be a contiguous 2-D f32/bf16 CUDA "
+                         f"tensor, got {table.dtype} {tuple(table.shape)} on {table.device}")
+    if idx.dtype != torch.int32 or idx.dim() != 1 or idx.device != table.device \
+            or not idx.is_contiguous():
+        raise ValueError("gather_rows: idx must be a contiguous (M,) int32 tensor on "
+                         "table's device")
+    out = torch.empty((idx.shape[0], table.shape[1]), dtype=table.dtype, device=table.device)
+    row_bytes = table.shape[1] * table.element_size()
+    word = next(w for w in (16, 4, 2)
+                if row_bytes % w == 0 and table.data_ptr() % w == 0 and out.data_ptr() % w == 0)
+    err = _lib().toda_gather_rows(table.data_ptr(), idx.data_ptr(), out.data_ptr(),
+                                  idx.shape[0], row_bytes, word, _stream(table))
+    _build.check(err, "gather_rows")
+    LAUNCHES["gather_rows"] += 1
+    return out
+

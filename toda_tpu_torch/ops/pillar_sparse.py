@@ -12,12 +12,13 @@ fallback, a TPU workaround for slow gathers; the tables are exact lookups of
 a BEV key among the sorted keys, which ``torch.searchsorted`` does directly.
 The voxelizer takes the plain f32 mean path of ``voxelize_pillars_batched``
 (:236-246); its per-cell sums are kernel K4 and its unpack kernel K5
-(``ops/gather.py``).
+(``ops/gather.py``). The dense scatter is K4 forward and its exact VJP, the
+row gather K6, backward.
 """
 
 import torch
 
-from .gather import scatter_rows_add, unpack_pillars
+from .gather import gather_rows, scatter_rows_add, unpack_pillars
 
 INT_MAX = 2**31 - 1
 
@@ -191,15 +192,31 @@ def fold_idx(idx, p_in):
     return torch.where(idx >= 0, idx + offs, -1).reshape(bt * idx.shape[1], idx.shape[2])
 
 
+class _DenseScatter(torch.autograd.Function):
+    """(M, W) rows -> (n, W) table by unique row keys (-1 dropped), in the
+    rows' dtype: K4 forward, the K6 row gather backward
+    (``_dense_scatter_diff`` :778-796)."""
+
+    @staticmethod
+    def forward(ctx, rows, flat, n):
+        ctx.save_for_backward(flat)
+        return scatter_rows_add(rows, flat, n).to(rows.dtype)
+
+    @staticmethod
+    def backward(ctx, gbar):
+        (flat,) = ctx.saved_tensors
+        return gather_rows(gbar.contiguous(), flat), None, None
+
+
 def pillars_to_dense_batched(features, coords, mask, bev_shape):
     """(B, P, nz, C) -> (B, ny, nx, nz, C) dense, by one K4 scatter (:799).
     Keys are unique and ascending per sample, so each dense row gets at most
-    one pillar."""
+    one pillar. Differentiable in ``features`` (K6 backward)."""
     ny, nx = bev_shape
     bt, p, nz, c = features.shape
     offs = torch.arange(bt, device=coords.device)[:, None] * (ny * nx)
     flat = torch.where(mask & (coords[..., 0] >= 0),
                        coords[..., 0].to(torch.int64) * nx + coords[..., 1] + offs, -1)
-    dense = scatter_rows_add(features.reshape(bt * p, nz * c).contiguous(),
-                             flat.to(torch.int32).reshape(-1), bt * ny * nx)
-    return dense.reshape(bt, ny, nx, nz, c).to(features.dtype)
+    rows, flat = features.reshape(bt * p, nz * c).contiguous(), flat.to(torch.int32).reshape(-1)
+    dense = _DenseScatter.apply(rows, flat, bt * ny * nx)
+    return dense.reshape(bt, ny, nx, nz, c)

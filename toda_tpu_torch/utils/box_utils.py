@@ -1,7 +1,7 @@
 """Host-side (numpy) 3D box geometry.
 
 The port's own copy of the parts of ``toda_tpu/utils/box_utils.py`` that the
-synthetic scenes, recall and mAP use. Box convention:
+synthetic scenes, the training data path, recall and mAP use. Box convention:
 ``(x, y, z, dx, dy, dz, heading[, ...])``, (x, y, z) the box centre, heading
 the yaw around +z (counter-clockwise, 0 = +x axis).
 """
@@ -9,6 +9,27 @@ the yaw around +z (counter-clockwise, 0 = +x axis).
 import numpy as np
 
 from . import common_utils
+
+
+def boxes_to_corners_3d(boxes3d):
+    """(N, 7) -> (N, 8, 3) corner points (bottom face 0-3, top face 4-7)."""
+    boxes3d = np.asarray(boxes3d)
+    template = np.array(
+        [[1, 1, -1], [1, -1, -1], [-1, -1, -1], [-1, 1, -1],
+         [1, 1, 1], [1, -1, 1], [-1, -1, 1], [-1, 1, 1]], dtype=np.float32) / 2.0
+    corners3d = boxes3d[:, None, 3:6] * template[None, :, :]
+    corners3d = common_utils.rotate_points_along_z(corners3d, boxes3d[:, 6])
+    corners3d += boxes3d[:, None, 0:3]
+    return corners3d
+
+
+def mask_boxes_outside_range_numpy(boxes, limit_range, min_num_corners=1):
+    """Keep boxes with >= min_num_corners corners inside ``limit_range``."""
+    if boxes.shape[1] > 7:
+        boxes = boxes[:, :7]
+    corners = boxes_to_corners_3d(boxes)
+    mask = ((corners >= limit_range[0:3]) & (corners <= limit_range[3:6])).all(axis=2)
+    return mask.sum(axis=1) >= min_num_corners
 
 
 def corners_bev(boxes):

@@ -24,6 +24,25 @@ def limit_period(val, offset=0.5, period=np.pi):
     return val - np.floor(val / period + offset) * period
 
 
+def rotate_points_along_z(points, angle):
+    """Rotate points around the z-axis (counter-clockwise, radians).
+    points (B, N, 3 + C) with angle (B,), or (N, 3 + C) with a scalar."""
+    points = np.asarray(points)
+    single = points.ndim == 2
+    if single:
+        points = points[None]
+        angle = np.asarray([angle], dtype=points.dtype)
+    angle = np.asarray(angle, dtype=points.dtype)
+    cosa, sina = np.cos(angle), np.sin(angle)
+    zeros, ones = np.zeros_like(cosa), np.ones_like(cosa)
+    rot = np.stack(
+        [cosa, sina, zeros, -sina, cosa, zeros, zeros, zeros, ones], axis=1
+    ).reshape(-1, 3, 3)
+    pts_rot = np.matmul(points[:, :, :3], rot)
+    pts_rot = np.concatenate([pts_rot, points[:, :, 3:]], axis=-1)
+    return pts_rot[0] if single else pts_rot
+
+
 def mask_points_by_range(points, limit_range):
     return (
         (points[:, 0] >= limit_range[0])
