@@ -29,7 +29,20 @@ Phases (none catches its own failure; any failure exits non-zero):
      per step asserted, losses finite; then the steady train throughput
      (loss read back every step) and peak memory;
  10. a torch.profiler window over two train steps;
- 11. one {"kernels": [...]} line, then the {"ok": true, "device": ...} line.
+ 11. tiny PartA2 in f32 on cuda and on cpu with the same weights and batch:
+     the point and dense head outputs must agree, and the RoI head on the
+     cpu's RoIs; once in full f32 and once with cuDNN's TF32 on, the
+     precision phases 12-13 run at;
+ 12. full-width PartA2 (``parta2_cfg``: the Waymo config on synthetic
+     scenes): one forward records every K9 call (63) and every decoder K6
+     call (27), and each is held against its plain version and timed;
+ 13. with every launch counter at 0, ``eval_one_epoch`` over 3 batches of
+     4 scans: outputs finite, RoI recall reported, launches per forward
+     asserted (K9 63, K6 27, K4 1, K5 1); then the steady predict
+     throughput, peak memory and a torch.profiler window of two steps;
+ 14. one {"kernels": [...]} line (every kernel's row sums its recorded
+     calls over the paths that run it, and its launches over their counted
+     runs), then the {"ok": true, "device": ...} line.
 Exits non-zero with no result when there is no CUDA device or the port is
 missing.
 """
@@ -44,6 +57,7 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 BATCH = 4
 N_BATCHES = 5
+PARTA2_BATCHES = 3
 SEED = 0
 TRAIN_STEPS = 20
 SCHEDULE_STEPS = 100  # OneCycle length: every step here stays in its warm-up
@@ -108,6 +122,39 @@ def tiny_cfg():
     m.BACKBONE_2D.UPSAMPLE_STRIDES = [1, 2]
     m.BACKBONE_2D.NUM_UPSAMPLE_FILTERS = [16, 16]
     return cfg
+
+
+def parta2_cfg():
+    """PartA2 at full width: ``MODEL`` and ``CLASS_NAMES`` of
+    tools/cfgs/waymo_models/PartA2.yaml (over waymo_models/second.yaml:
+    UNetV2 CHANNELS [16, 32, 64, 64], OUT_CHANNELS 128, BF16, MAX_PILLARS
+    65536; BEV LAYER_NUMS [5, 5], NUM_FILTERS [128, 256], NUM_UPSAMPLE_FILTERS
+    [256, 256]; 3 classes x 2 rotations of anchors; point head FCs [128];
+    RoI pool 12, 128 features, SHARED_FC [256, 256, 256], 100 test RoIs) and
+    the Waymo data settings (x, y, z, intensity, elongation; range [-75.2,
+    75.2]^2 x [-2, 4]; voxel (0.1, 0.1, 0.15) -> 1504 x 1504 x 40; 196608
+    points per scan), with 150k uniform background points, 20-40 objects
+    and at most 64 gt boxes a scan. Cuts: synthetic scenes instead of Waymo
+    scans (``SyntheticDataset``), no gt_sampling (test mode runs no
+    augmentation). The background fills every one of the 65536 pillar
+    slots."""
+    from toda_tpu_torch.config import EDict, cfg_from_yaml_file
+
+    cfg = cfg_from_yaml_file(str(REPO / "tools/cfgs/waymo_models/PartA2.yaml"), EDict())
+    d = cfg.DATA_CONFIG
+    d.DATASET = "SyntheticDataset"
+    d.NUM_BACKGROUND_POINTS = 150000
+    d.NUM_OBJECTS = [20, 40]
+    d.MAX_GT_BOXES = 64
+    d.NUM_SCENES = BATCH * PARTA2_BATCHES
+    return cfg
+
+
+def parta2_tiny_cfg():
+    from toda_tpu_torch.config import EDict, cfg_from_yaml_file
+
+    return cfg_from_yaml_file(
+        str(REPO / "tools/cfgs/synthetic_models/parta2_synthetic.yaml"), EDict())
 
 
 def cuda_ms(fn, iters, warmup=2):
@@ -611,6 +658,9 @@ def phase_train_main(bundle, state, step, batches):
     return launches, best, peak_gib, dev_batches[0]
 
 
+PROFILER_RANGES = ("Buffer Flush", "Activity Buffer Request")
+
+
 def phase_profile(run, what):
     """Kernel time by name over 2 steps of ``run`` (torch.profiler), and the
     device's busy share of the steady step time measured just before."""
@@ -630,10 +680,231 @@ def phase_profile(run, what):
             run()
         torch.cuda.synchronize()
     ka = prof.key_averages()
-    dev_ms = sum(e.self_device_time_total for e in ka if e.device_type == DeviceType.CUDA) / 2e3
+    # the profiler's activity-buffer ranges and the stage ranges' spans on
+    # the device are not kernels
+    dev_ms = sum(e.self_device_time_total for e in ka if e.device_type == DeviceType.CUDA
+                 and e.key not in PROFILER_RANGES and not e.key.startswith("stage:")) / 2e3
     log(f"profile {what}: steady step {step_ms:.1f} ms (host clock, batch {BATCH}); device "
         f"kernel time {dev_ms:.1f} ms per step; busy share {dev_ms / step_ms:.3f}")
+    # a stage range's host-side entry sums the kernel time of what it launched
+    stages = [e for e in ka if e.key.startswith("stage:") and e.device_type == DeviceType.CPU]
+    if stages:
+        log("  kernel time by stage per step: " + ", ".join(
+            f"{e.key[6:]} {e.device_time_total / 2e3:.1f} ms" for e in stages))
     log(ka.table(sort_by="self_device_time_total", row_limit=25, max_name_column_width=60))
+
+
+PARTA2_HEAD_KEYS = ("point_cls_scores", "point_part_offset", "point_features",
+                    "spatial_features_2d", "cls_preds", "box_preds", "dir_cls_preds")
+
+
+def phase_parta2_tiny_parity():
+    """Tiny PartA2 in f32: cuda vs cpu on the same weights and batch; then
+    the RoI head on both devices from the cpu's RoIs and point outputs.
+    Twice: in full f32, and with cuDNN's TF32 on, the precision the
+    full-width run is timed at."""
+    import numpy as np
+    import torch
+
+    from toda_tpu_torch.datasets import build_dataloader
+    from toda_tpu_torch.models import build_network
+    from toda_tpu_torch.weights import randomize_
+
+    cfg = parta2_tiny_cfg()
+    np.random.seed(SEED)
+    ds, loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, batch_size=2)
+    batch = next(iter(loader))
+    cpu = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), ds, device="cpu")
+    randomize_(cpu.module, SEED)
+    gpu = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), ds, device="cuda")
+    gpu.module.load_state_dict(cpu.module.state_dict(), strict=True)
+    out_c = cpu.forward(cpu.to_device(batch))
+    head_in = {k: out_c[k] for k in ("point_features", "point_coords", "point_mask",
+                                     "point_cls_scores", "point_part_offset", "rois", "roi_mask")}
+    # f32: only summation order differs, elementwise to 1e-3. TF32 rounds
+    # every convolution's inputs to 10 mantissa bits (2^-11 relative), so
+    # each output is held to 5e-3 of max(1, its largest magnitude), ~4x the
+    # 1.23e-3 read on an H100.
+    for tf32, tol in ((False, 1e-3), (True, 5e-3)):
+        torch.backends.cudnn.allow_tf32 = tf32
+        out_g = gpu.forward(gpu.to_device(batch))
+        with torch.inference_mode():
+            rcnn_g = gpu.module.roi_head({k: v.cuda() for k, v in head_in.items()})
+        worst = 0.0
+        pairs = [(k, out_c[k], out_g[k]) for k in PARTA2_HEAD_KEYS]
+        pairs += [(k, out_c[k], rcnn_g[k]) for k in ("rcnn_cls", "rcnn_reg")]
+        for name, a, b in pairs:
+            b = b.cpu()
+            err = (a - b).abs().max().item()
+            rel = err / max(1.0, a.abs().max().item())
+            worst = max(worst, rel)
+            ok = rel <= tol if tf32 else torch.allclose(a, b, rtol=tol, atol=tol)
+            assert ok, f"tiny PartA2 cuda/cpu (TF32 {tf32}) {name}: max err {err}, rel {rel:.3g}"
+        log(f"phase PartA2 tiny cuda-vs-cpu (f32, cuDNN TF32 {'on' if tf32 else 'off'}): point, "
+            f"BEV and anchor head outputs and the RoI head on the same RoIs agree, max rel err "
+            f"{worst:.3g} (tol {tol})")
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def gather_bound(table, idx):
+    """(bytes, 0 flops) of one row gather: the rows that idx names read
+    once, every output row written once, idx read once."""
+    import torch
+
+    row_bytes = table.shape[1] * table.element_size()
+    return (int(torch.count_nonzero(idx >= 0).item()) + idx.numel()) * row_bytes \
+        + idx.numel() * 4, 0
+
+
+def check_gathers(taps_calls, gather_calls):
+    """Hold each recorded K9 and K6 call against its plain version (exact)
+    and time it beside its plain version and the library's index_select."""
+    import torch
+
+    from toda_tpu_torch.ops import gather
+
+    rows = {"K9": [], "K6": []}
+    for key, calls, fn, plain in (
+            ("K9", taps_calls, gather.gather_rows_taps, gather.gather_rows_taps_plain),
+            ("K6", gather_calls, gather.gather_rows, gather.gather_rows_plain)):
+        for (table, idx), _ in calls:
+            out = fn(table, idx)
+            assert torch.equal(out, plain(table, idx)), f"{key} {tuple(table.shape)} differs"
+            padded = torch.cat([table, table.new_zeros((1, table.shape[1]))])
+            safe = torch.where(idx >= 0, idx.long(), table.shape[0])
+            if key == "K9":
+                safe = safe.t().contiguous()
+
+                def library(padded=padded, safe=safe):
+                    return [padded.index_select(0, s) for s in safe]
+            else:
+                def library(padded=padded, safe=safe):
+                    return padded.index_select(0, safe)
+            rows[key].append(dict(
+                shape=f"table{tuple(table.shape)} {table.dtype} idx{tuple(idx.shape)}",
+                err=0.0, tol="0 (exact)",
+                ms=cuda_ms(lambda: fn(table, idx), 10),
+                plain_ms=cuda_ms(lambda: plain(table, idx), 3),
+                library_ms=cuda_ms(library, 10),
+                bound=bound_ms(*gather_bound(table, idx), H100_F32_FLOPS)))
+            del out, padded, safe, library
+    return rows
+
+
+def phase_parta2_kernels(bundle, batch):
+    """Record every K9, K6, K4 and K5 call of one full-width PartA2 forward,
+    then hold each kernel against its plain version on them and time both."""
+    import torch
+
+    from toda_tpu_torch.ops import gather, pillar_sparse
+
+    with Recorder(pillar_sparse, "gather_rows_taps") as k9, \
+            Recorder(pillar_sparse, "gather_rows") as k6, \
+            Recorder(pillar_sparse, "scatter_rows_add") as k4, \
+            Recorder(pillar_sparse, "unpack_pillars") as k5:
+        out = bundle.forward(bundle.to_device(batch))
+    torch.cuda.synchronize()
+    for k in ("point_cls_scores", "rcnn_cls", "rcnn_reg", "rois"):
+        assert torch.isfinite(out[k]).all(), f"full-width PartA2 output {k} is not finite"
+    assert len(k9.calls) == 63 and len(k6.calls) == 27, (len(k9.calls), len(k6.calls))
+    assert len(k4.calls) == 1 and len(k5.calls) == 1, (len(k4.calls), len(k5.calls))
+    log(f"phase PartA2 kernels: one forward, {int(out['roi_mask'].sum())} RoIs kept; "
+        f"{len(k9.calls)} K9 and {len(k6.calls)} K6 calls recorded")
+    del out
+    with torch.no_grad():
+        rows = check_gathers(k9.calls, k6.calls)
+        for (g, idx, n), _ in k4.calls:
+            y = gather.scatter_rows_add(g, idx, n)
+            ref = gather.scatter_rows_add_plain(g, idx, n)
+            err = (y - ref).abs()
+            assert bool((err <= 1e-5 + 1e-5 * ref.abs()).all()), f"K4: max err {err.max()}"
+            safe = torch.where(idx >= 0, idx.long(), n)
+            buf = torch.zeros((n + 1, g.shape[1]), dtype=torch.float32, device=g.device)
+            nbytes = g.numel() * g.element_size() + idx.numel() * 4 + n * g.shape[1] * 4
+            rows.setdefault("K4", []).append(dict(
+                shape=f"g{tuple(g.shape)} -> ({n}, {g.shape[1]})", err=err.max().item(),
+                tol="1e-05 abs + rel", ms=cuda_ms(lambda: gather.scatter_rows_add(g, idx, n), 10),
+                plain_ms=cuda_ms(lambda: gather.scatter_rows_add_plain(g, idx, n), 10),
+                library_ms=cuda_ms(lambda: buf.index_add_(0, safe, g), 10),
+                bound=bound_ms(nbytes, g.numel(), H100_F32_FLOPS)))
+        for (sums, c, cpad, dtype), _ in k5.calls:
+            y = gather.unpack_pillars(sums, c, cpad, dtype)
+            assert torch.equal(y, gather.unpack_pillars_plain(sums, c, cpad, dtype)), "K5"
+            rows.setdefault("K5", []).append(dict(
+                shape=f"sums{tuple(sums.shape)} -> {tuple(y.shape)} {dtype}", err=0.0,
+                tol="0 (exact)", ms=cuda_ms(lambda: gather.unpack_pillars(sums, c, cpad, dtype), 10),
+                plain_ms=cuda_ms(lambda: gather.unpack_pillars_plain(sums, c, cpad, dtype), 10),
+                library_ms=None,
+                bound=bound_ms(sums.numel() * 4 + y.numel() * y.element_size(),
+                               sums.shape[0] * c * 2, H100_F32_FLOPS)))
+    log_rows({k: rows[k] for k in ("K4", "K5")})
+    for key in ("K9", "K6"):
+        # one line per distinct call shape: the calls' count and summed numbers
+        shapes = {}
+        for r in rows[key]:
+            shapes.setdefault(r["shape"], []).append(r)
+        for shape, rs in shapes.items():
+            log(f"  {key} {len(rs)} x {shape}: exact; ms {sum(r['ms'] for r in rs):.4f}, "
+                f"plain_ms {sum(r['plain_ms'] for r in rs):.4f}, index_select ms "
+                f"{sum(r['library_ms'] for r in rs):.4f}, bound_ms "
+                f"{sum(r['bound'][0] for r in rs):.4f} (bytes)")
+        log(f"  {key} per forward: {sum(r['ms'] for r in rows[key]):.3f} ms over "
+            f"{len(rows[key])} calls, bound {sum(r['bound'][0] for r in rows[key]):.3f} ms, "
+            f"plain {sum(r['plain_ms'] for r in rows[key]):.3f} ms, index_select "
+            f"{sum(r['library_ms'] for r in rows[key]):.3f} ms")
+    return rows
+
+
+def phase_parta2_main(bundle, cfg, loader, dataset):
+    """eval_one_epoch with every counter at 0; then the steady predict
+    throughput; returns the launches and scans/s."""
+    import numpy as np
+    import torch
+
+    from toda_tpu_torch.ops import fused_conv, gather
+    from toda_tpu_torch.runtime.eval_utils import eval_one_epoch
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.time()
+    result, annos = eval_one_epoch(bundle, loader, dataset, cfg.CLASS_NAMES)
+    wall = time.time() - t0
+    ga = gather.LAUNCHES
+    launches = {"K9": ga["gather_rows_taps"], "K6": ga["gather_rows"],
+                "K4": ga["scatter_rows_add"], "K5": ga["unpack_pillars"],
+                "K1": fused_conv.LAUNCHES["fused_bnconv9"]}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    n_fwd = len(loader)
+    assert n_fwd >= 3, n_fwd
+    assert launches == {"K9": 63 * n_fwd, "K6": 27 * n_fwd, "K4": n_fwd, "K5": n_fwd,
+                        "K1": 0}, launches
+    assert len(annos) == BATCH * n_fwd
+    for a in annos:
+        assert np.isfinite(a["boxes_lidar"]).all() and np.isfinite(a["score"]).all()
+    assert "recall/roi_0.3" in result, sorted(result)
+    n_det = sum(len(a["score"]) for a in annos)
+    log(f"phase PartA2 main path: eval_one_epoch over {n_fwd} batches of {BATCH} in "
+        f"{wall:.1f}s; launches {launches}; {n_det} detections, all finite; mAP "
+        f"{result['mAP']:.4f}, recall/0.3 {result['recall/0.3']:.4f}, recall/roi_0.3 "
+        f"{result['recall/roi_0.3']:.4f}, recall/roi_0.5 {result['recall/roi_0.5']:.4f}; "
+        f"eval sec/example {result['sec_per_example']:.4f}; peak device memory "
+        f"{peak_gib:.2f} GiB")
+
+    dev_batches = [bundle.to_device(b) for b in loader]
+    bundle.predict(dev_batches[0])
+    torch.cuda.synchronize()
+    iters, best = 10, 0.0
+    for _ in range(3):
+        t = time.time()
+        check = 0.0
+        for i in range(iters):
+            dets = bundle.predict(dev_batches[i % len(dev_batches)])
+            check += float(dets["pred_scores"][0, 0])
+        assert math.isfinite(check)
+        best = max(best, iters * BATCH / (time.time() - t))
+    log(f"phase PartA2 predict throughput: {best:.2f} scans/s steady state (batch {BATCH}, "
+        f"best of 3 x {iters} steps)")
+    return launches, best, dev_batches[0]
 
 
 def main():
@@ -703,6 +974,34 @@ def main():
     phase_profile(lambda: float(step(state, tdev)[1]["loss"]), "train step")
     launches.update({"K2": tlaunches["K2dx"] + tlaunches["dW"] - tlaunches["dW_raw"],
                      "K3": tlaunches["dW_raw"], "K6": tlaunches["K6"]})
+    del tbundle, state, step, tdev, tbatches
+    torch.cuda.empty_cache()
+
+    # PartA2 inference at the Waymo config's widths
+    phase_parta2_tiny_parity()
+    # PyTorch's default again for the full-width PartA2 run: cuDNN may take
+    # f32 convolutions in TF32 (JAX's f32 convolutions on the TPU run at its
+    # default, bf16-pass precision). UNetV2's conv_out promotes to f32, so
+    # PartA2's BEV backbone runs in f32, where cuDNN's full-f32 choice (an
+    # FFT) is orders of magnitude slower than its TF32 kernels.
+    torch.backends.cudnn.allow_tf32 = True
+    pcfg = parta2_cfg()
+    np.random.seed(SEED)
+    pdataset, ploader, _ = build_dataloader(pcfg.DATA_CONFIG, pcfg.CLASS_NAMES, batch_size=BATCH)
+    pbundle = build_network(pcfg.MODEL, len(pcfg.CLASS_NAMES), pdataset, device="cuda")
+    randomize_(pbundle.module, SEED)
+    pfirst = next(iter(ploader))
+    log(f"PartA2 full width: grid {pdataset.grid_size.tolist()}, {pfirst['points'].shape[1]} "
+        f"points/scan, {int(pfirst['points_mask'].sum(1).min())}-"
+        f"{int(pfirst['points_mask'].sum(1).max())} real, "
+        f"{int((pfirst['gt_boxes'][..., -1] > 0).sum())} gt boxes in the first batch")
+    for key, rs in phase_parta2_kernels(pbundle, pfirst).items():
+        rows.setdefault(key, []).extend(rs)
+    torch.cuda.empty_cache()
+    plaunches, parta2_scans, pdev = phase_parta2_main(pbundle, pcfg, ploader, pdataset)
+    phase_profile(lambda: float(pbundle.predict(pdev)["pred_scores"][0, 0]), "PartA2 predict")
+    for key in ("K9", "K6", "K4", "K5"):
+        launches[key] = launches.get(key, 0) + plaunches[key]
 
     meta = {
         "K1": ("fused_bnconv9", "toda_tpu_torch/csrc/fused_conv.cu",
@@ -717,6 +1016,8 @@ def main():
                "toda_tpu/ops/pallas_gather.py:1200"),
         "K6": ("gather_rows", "toda_tpu_torch/csrc/gather.cu",
                "toda_tpu/ops/pallas_gather.py:97"),
+        "K9": ("gather_rows_taps", "toda_tpu_torch/csrc/gather.cu",
+               "toda_tpu/ops/pallas_gather.py:201"),
     }
     kernels = []
     for key, (name, source, replaces) in meta.items():
@@ -734,10 +1035,13 @@ def main():
             "bound_by": "operations" if by_ops * 2 > bnd else "bytes",
             "library_ms": None if any(v is None for v in libs) else sum(libs),
         })
-    log(f"(kernel times are summed over the kernel's calls: K1, K4, K5 per forward of batch "
-        f"{BATCH}, launches over eval_one_epoch; K2, K3, K6 per train step, launches over "
-        f"{TRAIN_STEPS} train steps; {scans_per_s:.2f} predict scans/s, {train_scans:.2f} "
-        f"train scans/s, train peak memory {train_peak:.2f} GiB on {card})")
+    log(f"(kernel times are summed over the kernel's recorded calls: K1 per CenterPoint-Res "
+        f"forward of batch {BATCH}; K2, K3 per train step; K9 per PartA2 forward; K4, K5 one "
+        f"CenterPoint-Res and one PartA2 forward; K6 one train step and one PartA2 forward. "
+        f"Launches are summed over the counted runs: eval_one_epoch of each model, "
+        f"{TRAIN_STEPS} train steps. {scans_per_s:.2f} CenterPoint-Res predict scans/s, "
+        f"{train_scans:.2f} train scans/s, train peak memory {train_peak:.2f} GiB, "
+        f"{parta2_scans:.2f} PartA2 predict scans/s, on {card})")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

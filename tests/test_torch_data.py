@@ -18,6 +18,10 @@ from toda_tpu_torch.datasets import build_dataloader
 from toda_tpu_torch.runtime import eval_utils
 from toda_tpu_torch.utils.eval_utils import eval_map
 
+# One torch thread per process: pytest-xdist's workers already share every
+# core, and OpenMP threads waiting on a busy core waste it.
+torch.set_num_threads(1)
+
 CFG = "tools/cfgs/synthetic_models/centerpoint_synthetic.yaml"
 
 

@@ -25,6 +25,10 @@ from toda_tpu_torch.models import build_network
 from toda_tpu_torch.utils.common_utils import resolve_device
 from toda_tpu_torch.weights import state_dict_from_flax
 
+# One torch thread per process: pytest-xdist's workers already share every
+# core, and OpenMP threads waiting on a busy core waste it.
+torch.set_num_threads(1)
+
 CFG = "tools/cfgs/synthetic_models/centerpoint_synthetic.yaml"
 
 
@@ -96,7 +100,7 @@ def run_both(bf16, decode=True):
     pcfg = tiny(cfg_from_yaml_file(CFG, EDict()), bf16)
     pb = build_network(pcfg.MODEL, len(pcfg.CLASS_NAMES),
                        build_dataset(pcfg.DATA_CONFIG, pcfg.CLASS_NAMES), device="cpu")
-    pb.module.load_state_dict(state_dict_from_flax(tree), strict=True)
+    pb.module.load_state_dict(state_dict_from_flax(tree, pb.module), strict=True)
     out = pb.forward(pb.to_device(batch))
     pout = (out["spatial_features_2d"].permute(0, 2, 3, 1).numpy(),
             {k: v.permute(0, 2, 3, 1).numpy() for k, v in out["center_pred_dicts"][0].items()})

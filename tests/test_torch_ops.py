@@ -21,6 +21,10 @@ from toda_tpu.ops.rotated_iou import boxes_iou_bev as j_iou
 from toda_tpu_torch.ops import fused_conv, gather, nms, pillar_sparse
 from toda_tpu_torch.ops.rotated_iou import boxes_iou_bev
 
+# One torch thread per process: pytest-xdist's workers already share every
+# core, and OpenMP threads waiting on a busy core waste it.
+torch.set_num_threads(1)
+
 
 def to_port(xt, nz):
     """JAX (nz*C, M) -> port (M, nz, C)."""

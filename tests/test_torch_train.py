@@ -29,13 +29,24 @@ from toda_tpu_torch.models import build_network
 from toda_tpu_torch.runtime import optimization, train_utils
 from toda_tpu_torch.weights import state_dict_from_flax
 
+# One torch thread per process: pytest-xdist's workers already share every
+# core, and OpenMP threads waiting on a busy core waste it.
+torch.set_num_threads(1)
+
 STEPS = 3
 TOTAL_STEPS = 10  # the schedules' length: the 3 steps climb the OneCycle warm-up
 
 
+def _port_module():
+    """A port module of the tiny model, the target of the weight carrier."""
+    pcfg = tiny(cfg_from_yaml_file(CFG, EDict()), False)
+    return build_network(pcfg.MODEL, len(pcfg.CLASS_NAMES),
+                         build_dataset(pcfg.DATA_CONFIG, pcfg.CLASS_NAMES), device="cpu").module
+
+
 def _state_dict(params, batch_stats):
     return state_dict_from_flax({"params": jax.device_get(params),
-                                 "batch_stats": jax.device_get(batch_stats)})
+                                 "batch_stats": jax.device_get(batch_stats)}, _port_module())
 
 
 def _port_steps(init, batch):
@@ -84,7 +95,8 @@ def runs():
     ptargets = port["bundle"].module.dense_head.assign_targets(
         torch.as_tensor(np.asarray(batch["gt_boxes"])))
     return dict(
-        jgrads=state_dict_from_flax({"params": jax.device_get(jgrads)}), pgrads=port["grads"],
+        jgrads=state_dict_from_flax({"params": jax.device_get(jgrads)}, _port_module()),
+        pgrads=port["grads"],
         jlosses=jlosses, plosses=port["losses"], jtargets=jtargets, ptargets=ptargets,
         jfinal=_state_dict(state.params, state.batch_stats), pfinal=port["final"],
         init=init, batch=batch, lr_sum=port["lr_sum"])

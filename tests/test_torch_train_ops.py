@@ -20,6 +20,10 @@ from toda_tpu.ops import pallas_gather as pg
 from toda_tpu.ops import pillar_sparse as jps
 from toda_tpu_torch.ops import fused_conv, gather, pillar_sparse
 
+# One torch thread per process: pytest-xdist's workers already share every
+# core, and OpenMP threads waiting on a busy core waste it.
+torch.set_num_threads(1)
+
 
 def f32(a):
     return np.asarray(jnp.asarray(a).astype(jnp.float32))

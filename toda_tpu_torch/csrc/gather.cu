@@ -1,5 +1,5 @@
-// Row scatter-add (K4), voxelizer unpack (K5) and row gather (K6) for Hopper
-// (sm_90a).
+// Row scatter-add (K4), voxelizer unpack (K5), row gather (K6) and multi-tap
+// row gather (K9) for Hopper (sm_90a).
 //
 // Built by toda_tpu_torch/ops/_build.py into a shared library with a plain C
 // interface; toda_tpu_torch/ops/gather.py binds it with ctypes. Every launcher
@@ -33,6 +33,19 @@
 // not 16-byte aligned) from its table row, or writes zeros for idx == -1.
 // Neighbouring threads copy neighbouring chunks of a row. Bound: bytes (the
 // gathered rows read once, the output written once).
+//
+// K9 gather_rows_taps replaces pallas_gather.py _gather_taps_kernel (public
+// gather_rows_taps), the gathers of the row-major sparse conv: out[t][i] =
+// table[idx[i, t]] for T <= 9 taps of one (M, T) table in one launch, a zero
+// row where idx is -1. The TPU kernel DMAs one span window of table rows per
+// 128-row block for all T taps and selects each tap with a one-hot MXU
+// product, padded to 128 lanes, because a TPU core cannot gather rows. Here
+// it is K6's copy with a tap axis: each thread copies one 16-byte chunk (4 or
+// 2 bytes where the row width or a pointer is not 16-byte aligned) of one
+// tap's output row; the output is (T, M, row) so each tap's rows are
+// contiguous and neighbouring threads write neighbouring chunks. No window,
+// no one-hot product, no lane padding. Bound: bytes (the gathered rows read
+// once, the output written once).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -100,6 +113,22 @@ __global__ void gather_rows_kernel(const V* __restrict__ table,
   out[t] = j >= 0 ? table[(int64_t)j * row_words + k] : V();
 }
 
+// One thread per word of the (ntap, m, row_words) output; idx is (m, ntap).
+template <typename V>
+__global__ void gather_rows_taps_kernel(const V* __restrict__ table,
+                                        const int32_t* __restrict__ idx,
+                                        V* __restrict__ out, int64_t m, int ntap,
+                                        int64_t row_words) {
+  int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= (int64_t)ntap * m * row_words) return;
+  int64_t r = t / row_words;  // output row (tap, i)
+  int64_t k = t - r * row_words;
+  int64_t tap = r / m;
+  int64_t i = r - tap * m;
+  int32_t j = idx[i * ntap + tap];
+  out[t] = j >= 0 ? table[(int64_t)j * row_words + k] : V();
+}
+
 constexpr int kThreads = 256;
 
 inline unsigned blocks_for(int64_t n) {
@@ -158,6 +187,28 @@ int toda_gather_rows(const void* table, const int32_t* idx, void* out, int64_t m
     } else {
       gather_rows_kernel<uint16_t><<<blocks, kThreads, 0, stream>>>(
           (const uint16_t*)table, idx, (uint16_t*)out, m, words);
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
+// table: (n, row_bytes) bytes per row; idx: (m, ntap); out: (ntap, m,
+// row_bytes). word as for toda_gather_rows.
+int toda_gather_rows_taps(const void* table, const int32_t* idx, void* out, int64_t m,
+                          int ntap, int64_t row_bytes, int word, cudaStream_t stream) {
+  const int64_t words = row_bytes / word;
+  const int64_t total = (int64_t)ntap * m * words;
+  if (total > 0) {
+    const unsigned blocks = blocks_for(total);
+    if (word == 16) {
+      gather_rows_taps_kernel<uint4><<<blocks, kThreads, 0, stream>>>(
+          (const uint4*)table, idx, (uint4*)out, m, ntap, words);
+    } else if (word == 4) {
+      gather_rows_taps_kernel<uint32_t><<<blocks, kThreads, 0, stream>>>(
+          (const uint32_t*)table, idx, (uint32_t*)out, m, ntap, words);
+    } else {
+      gather_rows_taps_kernel<uint16_t><<<blocks, kThreads, 0, stream>>>(
+          (const uint16_t*)table, idx, (uint16_t*)out, m, ntap, words);
     }
   }
   return (int)cudaGetLastError();

@@ -1,14 +1,19 @@
-"""BEV-sparse / z-dense residual 3D backbone (CenterPoint-Res).
+"""BEV-sparse / z-dense 3D backbone layers: the fused residual backbone
+(CenterPoint-Res) and the row-major conv layers of UNetV2 (PartA2).
 
 Counterpart of ``toda_tpu/models/backbones_3d/pillar_sparse_backbone.py``
-(``_PillarBackboneBase`` :338, ``PillarResBackBone8x`` :500) on the port's
-row-major activations (B*P, nz, C). Layers chain their RAW conv outputs with a
+(``_PillarBackboneBase`` :338, ``PillarResBackBone8x`` :500,
+``PillarConvLayer`` / ``PillarSubMBlock`` :64-125) on the port's row-major
+activations (B*P, nz, C). Layers chain their RAW conv outputs with a
 pending BatchNorm affine (scale, shift, relu): the next fused conv (kernel K1,
 ``ops/fused_conv.py``) applies it to the rows it gathers, and a residual
 block's join applies it once. In training mode the affine comes from the
 batch statistics and gradients flow back through the fused conv's backward
-kernels (dx and dW) into the statistics. Parameter and buffer names mirror
-the flax tree (``weights.state_dict_from_flax``).
+kernels (dx and dW) into the statistics. The row-major layers
+(``PillarConvLayer``, ``PillarSubMBlock``) run ``pillar_conv3d`` (K9 gathers
+and a plain z product) and apply their BatchNorm at once, as JAX's legacy
+layers do. Parameter and buffer names mirror the flax tree
+(``weights.state_dict_from_flax``).
 """
 
 import torch
@@ -16,14 +21,72 @@ from torch import nn
 
 from ...ops.fused_conv import fused_bnconv9_ad, out_depth
 from ..backbones_2d.base_bev_backbone import FLAX_MOMENTUM
+from ..model_utils.masked_norm import MaskedBatchNorm
 from ...ops.pillar_sparse import (
     bev_downsample_sites,
     bev_inv_down_idx_batched,
     bev_neighbor_idx_sorted_batched,
     fold_idx,
+    pillar_conv3d,
     pillars_to_dense_batched,
     voxelize_pillars_batched,
 )
+
+
+def he_kernel(in_channels, out_channels):
+    """A (3, 3, 3, C, Cout) sparse-conv kernel, He-normal as flax inits it."""
+    w = torch.empty(3, 3, 3, in_channels, out_channels)
+    return nn.Parameter(nn.init.normal_(w, std=(2.0 / (27 * in_channels)) ** 0.5))
+
+
+class PillarConvLayer(nn.Module):
+    """Row-major 3x3x3 conv + masked BatchNorm (+ relu) (``PillarConvLayer``
+    :64-91): x (B*P_in, nz, C) -> (B*P_out, nz_out, Cout), zero on invalid
+    rows."""
+
+    def __init__(self, in_channels, out_channels, z_stride=1, use_relu=True, identity_tap=None):
+        super().__init__()
+        self.z_stride, self.use_relu, self.identity_tap = z_stride, use_relu, identity_tap
+        self.kernel = he_kernel(in_channels, out_channels)
+        self.bn = MaskedBatchNorm(out_channels)
+
+    def forward(self, x, idxf, out_maskf):
+        out = pillar_conv3d(x, idxf, self.kernel.to(x.dtype), out_maskf, self.z_stride,
+                            self.identity_tap)
+        out = self.bn(out, out_maskf[:, None])
+        return torch.relu(out) if self.use_relu else out
+
+
+class PillarSubMBlock(nn.Module):
+    """Submanifold block of row-major convs (``PillarSubMBlock`` :94-125):
+    ``num_layers`` convs, or with ``residual`` two convs and an identity
+    join. The caller passes the stage's folded submanifold table (JAX
+    builds it in each block from a dense BEV map; the sorted lookup gives
+    the same table). The residual form's width projection is not ported:
+    UNetV2 keeps the width."""
+
+    def __init__(self, in_channels, out_channels, num_layers=2, residual=False):
+        super().__init__()
+        self.residual = residual
+        if residual:
+            if in_channels != out_channels:
+                raise NotImplementedError("PillarSubMBlock: the residual projection")
+            self.conv1 = PillarConvLayer(in_channels, out_channels, identity_tap=4)
+            self.conv2 = PillarConvLayer(out_channels, out_channels, use_relu=False,
+                                         identity_tap=4)
+        else:
+            self.num_layers = num_layers
+            for i in range(num_layers):
+                self.add_module(f"subm{i}", PillarConvLayer(
+                    in_channels if i == 0 else out_channels, out_channels, identity_tap=4))
+
+    def forward(self, x, idxf, maskf):
+        if self.residual:
+            # both terms are zero on invalid rows, so the join is too
+            return torch.relu(self.conv2(self.conv1(x, idxf, maskf), idxf, maskf) + x)
+        for i in range(self.num_layers):
+            x = getattr(self, f"subm{i}")(x, idxf, maskf)
+        return x
 
 
 class MaskedBatchNormT(nn.Module):
@@ -78,7 +141,7 @@ def apply_affine(x, affine, maskf):
     return torch.where(maskf[:, None, None], y, torch.zeros_like(y))
 
 
-class PillarConvLayer(nn.Module):
+class PillarConvLayerT(nn.Module):
     """One fused conv (``PillarConvLayerT`` :187, fused contract): takes the
     raw input and its pending affine, returns the raw output and the affine
     of its own BatchNorm."""
@@ -87,8 +150,7 @@ class PillarConvLayer(nn.Module):
         super().__init__()
         self.z_stride = z_stride
         self.use_relu = use_relu
-        self.kernel = nn.Parameter(torch.empty(3, 3, 3, in_channels, out_channels))
-        nn.init.normal_(self.kernel, std=(2.0 / (27 * in_channels)) ** 0.5)
+        self.kernel = he_kernel(in_channels, out_channels)
         self.bn = MaskedBatchNormT(out_channels)
 
     def forward(self, x, idxf, invf, out_maskf, affine):
@@ -104,8 +166,8 @@ class PillarResBlock(nn.Module):
 
     def __init__(self, in_channels, out_channels):
         super().__init__()
-        self.conv1 = PillarConvLayer(in_channels, out_channels)
-        self.conv2 = PillarConvLayer(out_channels, out_channels, use_relu=False)
+        self.conv1 = PillarConvLayerT(in_channels, out_channels)
+        self.conv2 = PillarConvLayerT(out_channels, out_channels, use_relu=False)
         if in_channels != out_channels:
             self.proj_kernel = nn.Parameter(torch.empty(in_channels, out_channels))
             nn.init.normal_(self.proj_kernel, std=in_channels ** -0.5)
@@ -144,7 +206,7 @@ class PillarResBackBone8x(nn.Module):
         self.stage1 = PillarResBlock(cin, chans[0])
         nz = self.grid_size[2]
         for si, ch in enumerate(chans[1:], start=2):
-            self.add_module(f"down{si}", PillarConvLayer(chans[si - 2], ch, z_stride=2))
+            self.add_module(f"down{si}", PillarConvLayerT(chans[si - 2], ch, z_stride=2))
             self.add_module(f"stage{si}", PillarResBlock(ch, ch))
             nz = out_depth(nz, 2)
         self.num_stages = len(chans)

@@ -13,6 +13,8 @@ from ...ops.nms import top_k
 from ...utils import loss_utils
 from ..backbones_2d.base_bev_backbone import bn_apply, conv_same, make_bn
 
+HM_INIT_BIAS = -2.19  # the heatmap conv's initial bias (flax SeparateHead.init_bias)
+
 
 def gaussian_radius(det_size, min_overlap=0.5):
     """Radius such that a shifted box still overlaps IoU >= min_overlap
@@ -41,6 +43,7 @@ class SeparateHead(nn.Module):
                                                              bias=False))
                 self.add_module(f"{name}_bn{k}", make_bn(in_channels))
             self.add_module(f"{name}_out", nn.Conv2d(in_channels, cfg["out_channels"], 3))
+        self.hm_out.flax_bias_init = HM_INIT_BIAS
 
     def forward(self, x):
         out = {}

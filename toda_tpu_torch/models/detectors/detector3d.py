@@ -1,10 +1,14 @@
 """Config-driven detector assembly and its training and inference surface.
 
-Counterpart of ``toda_tpu/models/detectors/detector3d.py``: ``DatasetMeta``,
-the ``Detector3D`` path for point-consuming backbones (the backbone owns its
-voxelization), ``DetectorBundle.loss`` / ``head_loss`` (the CenterHead
-branch, :540-567, :616-644) and ``predict`` / ``post_processing`` (:720-743).
-Detector families other than CenterPoint-Res come in later slices.
+Counterpart of ``toda_tpu/models/detectors/detector3d.py``: ``DatasetMeta``;
+``Detector3D``, built from the config's module names (the backbone owns its
+voxelization); the first-stage proposals of a two-stage detector
+(``_make_proposals`` :295-341); ``DetectorBundle`` with the anchors and the
+box coders (:443-470, :521-525), ``loss`` / ``head_loss`` (the CenterHead
+branch, :540-567, :616-644) and ``predict`` / ``post_processing`` (the
+two-stage and CenterHead branches, :661-743). Two families are ported:
+CenterPoint-Res (PillarResBackBone8x + CenterHead) and PartA2
+(UNetV2 + AnchorHeadSingle + PointHeadIntraPart + PartA2FCHead, inference).
 """
 
 from dataclasses import dataclass
@@ -13,11 +17,23 @@ import torch
 from torch import nn
 
 from ...ops.nms import class_agnostic_nms
+from ...utils.box_coder_utils import ResidualCoder
+from ...weights import init_like_flax_
 from ..backbones_2d.base_bev_backbone import BaseBEVBackbone
 from ..backbones_2d.map_to_bev.height_compression import HeightCompression
 from ..backbones_3d.pillar_sparse_backbone import PillarResBackBone8x
+from ..backbones_3d.pillar_unet import UNetV2
+from ..dense_heads.anchor_head_single import AnchorHeadSingle, generate_predicted_boxes
 from ..dense_heads.center_head import CenterHead
-from ...weights import init_like_flax_
+from ..dense_heads.point_head_intra_part import PointHeadIntraPart
+from ..dense_heads.target_assigner.anchor_generator import AnchorGenerator
+from ..roi_heads.parta2_head import PartA2FCHead
+from ..roi_heads.roi_utils import generate_predicted_boxes_roi, proposal_layer
+
+BACKBONES_3D = {"PillarResBackBone8x": PillarResBackBone8x, "UNetV2": UNetV2}
+# the ported families: dense head -> (point head, roi head) it runs with
+FAMILIES = {"CenterHead": (None, None),
+            "AnchorHeadSingle": ("PointHeadIntraPart", "PartA2FCHead")}
 
 
 @dataclass(frozen=True)
@@ -41,37 +57,77 @@ class DatasetMeta:
         )
 
 
-def _require(cfg, key, name):
-    got = cfg.get(key, {}).get("NAME") if cfg.get(key) else None
-    if got != name:
+def _name(cfg, key):
+    return cfg[key].get("NAME") if cfg.get(key) else None
+
+
+def _require(cfg, key, names):
+    got = _name(cfg, key)
+    if got not in names:
         raise NotImplementedError(f"{key} {got} is not ported to the PyTorch package yet "
-                                  f"(ported: {name})")
+                                  f"(ported: {', '.join(str(n) for n in names)})")
+    return got
 
 
 class Detector3D(nn.Module):
-    """PillarResBackBone8x -> HeightCompression -> BaseBEVBackbone ->
-    CenterHead, each built from the model config."""
+    """3D backbone -> HeightCompression -> BaseBEVBackbone -> dense head
+    [-> point head -> proposals -> RoI head], each built from the model
+    config. ``anchors`` (numpy, the anchor head's) ride along as a
+    non-persistent buffer."""
 
-    def __init__(self, model_cfg, meta):
+    def __init__(self, model_cfg, meta, num_class, anchors=None, num_anchors_per_location=1,
+                 box_coder=None):
         super().__init__()
-        _require(model_cfg, "BACKBONE_3D", "PillarResBackBone8x")
-        _require(model_cfg, "MAP_TO_BEV", "HeightCompression")
-        _require(model_cfg, "BACKBONE_2D", "BaseBEVBackbone")
-        _require(model_cfg, "DENSE_HEAD", "CenterHead")
-        self.backbone_3d = PillarResBackBone8x(
+        self.model_cfg = model_cfg
+        bb3d = _require(model_cfg, "BACKBONE_3D", BACKBONES_3D)
+        _require(model_cfg, "MAP_TO_BEV", ("HeightCompression",))
+        _require(model_cfg, "BACKBONE_2D", ("BaseBEVBackbone",))
+        head = _require(model_cfg, "DENSE_HEAD", FAMILIES)
+        _require(model_cfg, "POINT_HEAD", (FAMILIES[head][0],))
+        _require(model_cfg, "ROI_HEAD", (FAMILIES[head][1],))
+        self.backbone_3d = BACKBONES_3D[bb3d](
             model_cfg["BACKBONE_3D"], meta.num_point_features, meta.grid_size,
             meta.voxel_size, meta.point_cloud_range)
         self.map_to_bev = HeightCompression()
         self.backbone_2d = BaseBEVBackbone(model_cfg["BACKBONE_2D"],
                                            self.backbone_3d.num_bev_features)
-        self.dense_head = CenterHead(
-            model_cfg["DENSE_HEAD"], self.backbone_2d.num_bev_features, meta.class_names,
-            meta.grid_size, meta.point_cloud_range, meta.voxel_size)
+        bev_ch = self.backbone_2d.num_bev_features
+        self.box_coder = box_coder
+        self.stages = ["backbone_3d", "map_to_bev", "backbone_2d", "dense_head"]
+        if head == "CenterHead":
+            self.dense_head = CenterHead(
+                model_cfg["DENSE_HEAD"], bev_ch, meta.class_names, meta.grid_size,
+                meta.point_cloud_range, meta.voxel_size)
+        else:
+            self.dense_head = AnchorHeadSingle(model_cfg["DENSE_HEAD"], bev_ch, num_class,
+                                               num_anchors_per_location, box_coder.code_size)
+            self.register_buffer("anchors", torch.as_tensor(anchors), persistent=False)
+            point_ch = self.backbone_3d.num_point_features
+            self.point_head = PointHeadIntraPart(model_cfg["POINT_HEAD"], point_ch, num_class)
+            self.roi_head = PartA2FCHead(model_cfg["ROI_HEAD"], point_ch, num_class,
+                                         box_coder.code_size)
+            self.stages += ["point_head", "proposals", "roi_head"]
 
     def forward(self, batch_dict):
+        """The stages in order, each in a ``torch.profiler`` range named
+        ``stage:<name>`` (a profile's per-stage device time)."""
         batch_dict = dict(batch_dict)
-        for stage in (self.backbone_3d, self.map_to_bev, self.backbone_2d, self.dense_head):
-            batch_dict = stage(batch_dict)
+        for name in self.stages:
+            with torch.profiler.record_function(f"stage:{name}"):
+                batch_dict = getattr(self, name)(batch_dict)
+        return batch_dict
+
+    def proposals(self, batch_dict):
+        """The anchor head's decoded boxes through the proposal NMS of the
+        RoI head's NMS_CONFIG (TEST in eval, TRAIN in training) -> rois,
+        roi_scores, roi_labels, roi_mask."""
+        cls_logits, box_preds = generate_predicted_boxes(
+            batch_dict, self.anchors, self.model_cfg["DENSE_HEAD"], self.box_coder)
+        nms_cfg = self.model_cfg["ROI_HEAD"]["NMS_CONFIG"]
+        nms_cfg = nms_cfg.get("TRAIN" if self.training else "TEST", nms_cfg)
+        rois, scores, labels, mask = proposal_layer(box_preds, cls_logits, nms_cfg)
+        batch_dict.update(rois=rois[..., :7], roi_scores=scores, roi_labels=labels,
+                          roi_mask=mask)
         return batch_dict
 
 
@@ -85,7 +141,19 @@ class DetectorBundle:
         self.num_class = num_class
         self.device = device
         self.meta = DatasetMeta.from_dataset(dataset)
-        self.module = init_like_flax_(Detector3D(model_cfg, self.meta), seed).to(device).eval()
+        self.dense_head_name = _name(model_cfg, "DENSE_HEAD")
+        self.box_coder, anchors, num_anchors_per_loc = None, None, 1
+        if self.dense_head_name == "AnchorHeadSingle":
+            gen = AnchorGenerator(model_cfg["DENSE_HEAD"]["ANCHOR_GENERATOR_CONFIG"],
+                                  self.meta.point_cloud_range, self.meta.grid_size)
+            anchors, num_anchors_per_loc = gen.generate()
+            self.box_coder = ResidualCoder()
+        roi_cfg = model_cfg.get("ROI_HEAD") or {}
+        self.roi_box_coder = ResidualCoder() if roi_cfg.get("TARGET_CONFIG") else None
+        module = Detector3D(model_cfg, self.meta, num_class, anchors, num_anchors_per_loc,
+                            self.box_coder)
+        self.module = init_like_flax_(module, seed).to(device).eval()
+        self.anchors = getattr(self.module, "anchors", None)
         self.post_cfg = model_cfg.get("POST_PROCESSING", {})
 
     def to_device(self, batch):
@@ -98,6 +166,8 @@ class DetectorBundle:
 
     def head_loss(self, out, gt_boxes):
         """(total, tb) detection loss of the forward outputs (CenterHead)."""
+        if self.dense_head_name != "CenterHead":
+            raise NotImplementedError(f"training of {self.dense_head_name} is not ported yet")
         return self.module.dense_head.get_loss(out, gt_boxes)
 
     def loss(self, batch_dict):
@@ -122,7 +192,8 @@ class DetectorBundle:
         return self.post_processing(self.forward(batch_dict))
 
     def post_processing(self, out):
-        """Static-K decode + class-agnostic NMS (CenterHead branch)."""
+        """Static-K decode + class-agnostic NMS; with a RoI head the
+        first-stage proposals ride along as ``rois`` / ``roi_mask``."""
         cfg = self.post_cfg
         nms_cfg = cfg.get("NMS_CONFIG", {})
         with torch.inference_mode():
@@ -134,15 +205,24 @@ class DetectorBundle:
                 post_maxsize=int(nms_cfg.get("NMS_POST_MAXSIZE", 128)),
             )
             box_idx = idx[..., None].expand(-1, -1, boxes.shape[-1])
-            return {
+            dets = {
                 "pred_boxes": torch.gather(boxes, 1, box_idx),
                 "pred_scores": torch.gather(scores, 1, idx) * mask,
                 "pred_labels": torch.gather(labels, 1, idx) * mask,
                 "pred_mask": mask,
             }
+            if "rois" in out:
+                dets["rois"], dets["roi_mask"] = out["rois"], out["roi_mask"]
+            return dets
 
     def decode(self, out):
-        """(B, MAX_OBJ_PER_SAMPLE) top-K boxes, scores and labels, no NMS."""
+        """Boxes, scores and labels before the final NMS: the RoI head's
+        refined boxes scored by its cls branch (two-stage), or the
+        CenterHead's (B, MAX_OBJ_PER_SAMPLE) top-K."""
+        if self.roi_box_coder is not None and "rcnn_reg" in out:
+            rcnn_cls, boxes = generate_predicted_boxes_roi(
+                out["rois"], out["rcnn_cls"], out["rcnn_reg"], self.roi_box_coder)
+            return boxes, torch.sigmoid(rcnn_cls[..., 0]) * out["roi_mask"], out["roi_labels"]
         max_obj = int(self.post_cfg.get("MAX_OBJ_PER_SAMPLE", 128))
         return self.module.dense_head.generate_predicted_boxes(out, max_obj=max_obj)
 

@@ -1,3 +1,4 @@
 """Device ops of the port. The CUDA kernels (``csrc/``) sit behind
-``gather.scatter_rows_add`` (K4), ``gather.unpack_pillars`` (K5) and
-``fused_conv.fused_bnconv9`` (K1)."""
+``fused_conv.fused_bnconv9`` (K1) and its backward (K2, K3),
+``gather.scatter_rows_add`` (K4), ``gather.unpack_pillars`` (K5),
+``gather.gather_rows`` (K6) and ``gather.gather_rows_taps`` (K9)."""

@@ -1,10 +1,11 @@
-"""Row scatter-add (kernel K4), the voxelizer unpack (kernel K5) and the row
-gather (kernel K6).
+"""Row scatter-add (kernel K4), the voxelizer unpack (kernel K5), the row
+gather (kernel K6) and the multi-tap row gather (kernel K9).
 
 Counterparts of ``toda_tpu/ops/pallas_gather.py``: ``scatter_rows_add``
 (:1143, TPU kernel ``_scatter_kernel`` :925), ``unpack_pillars_t`` (:1251,
-TPU kernel ``_unpack_kernel`` :1200) and ``gather_rows`` (:1121, TPU kernel
-``_gather_kernel`` :97). The CUDA kernels are in
+TPU kernel ``_unpack_kernel`` :1200), ``gather_rows`` (:1121, TPU kernel
+``_gather_kernel`` :97) and ``gather_rows_taps`` (:301, TPU kernel
+``_gather_taps_kernel`` :201). The CUDA kernels are in
 ``toda_tpu_torch/csrc/gather.cu``; its header says what bounds each one on the
 H100 and why it is built as it is. Each wrapper runs its plain PyTorch version
 for a tensor on the CPU, launches its kernel for a CUDA tensor, and counts its
@@ -19,7 +20,8 @@ from . import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _bound = False
-LAUNCHES = {"scatter_rows_add": 0, "unpack_pillars": 0, "gather_rows": 0}
+LAUNCHES = {"scatter_rows_add": 0, "unpack_pillars": 0, "gather_rows": 0,
+            "gather_rows_taps": 0}
 
 
 def _lib():
@@ -33,12 +35,28 @@ def _lib():
         lib.toda_unpack_pillars.restype = i32
         lib.toda_gather_rows.argtypes = [p, p, p, i64, i64, i32, p]
         lib.toda_gather_rows.restype = i32
+        lib.toda_gather_rows_taps.argtypes = [p, p, p, i64, i32, i64, i32, p]
+        lib.toda_gather_rows_taps.restype = i32
         _bound = True
     return lib
 
 
 def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _check_table(table, what):
+    if not table.is_cuda or table.dtype not in _DTYPE_CODE or table.dim() != 2 \
+            or not table.is_contiguous():
+        raise ValueError(f"{what}: table must be a contiguous 2-D f32/bf16 CUDA "
+                         f"tensor, got {table.dtype} {tuple(table.shape)} on {table.device}")
+
+
+def _word(row_bytes, *tensors):
+    """The widest copy word (16, 4 or 2 bytes) that divides the row width and
+    every tensor's address."""
+    return next(w for w in (16, 4, 2)
+                if row_bytes % w == 0 and all(t.data_ptr() % w == 0 for t in tensors))
 
 
 def scatter_rows_add_plain(g, idx, n):
@@ -133,21 +151,50 @@ def gather_rows(table, idx):
     """
     if table.device.type == "cpu":
         return gather_rows_plain(table, idx)
-    if not table.is_cuda or table.dtype not in _DTYPE_CODE or table.dim() != 2 \
-            or not table.is_contiguous():
-        raise ValueError(f"gather_rows: table must be a contiguous 2-D f32/bf16 CUDA "
-                         f"tensor, got {table.dtype} {tuple(table.shape)} on {table.device}")
+    _check_table(table, "gather_rows")
     if idx.dtype != torch.int32 or idx.dim() != 1 or idx.device != table.device \
             or not idx.is_contiguous():
         raise ValueError("gather_rows: idx must be a contiguous (M,) int32 tensor on "
                          "table's device")
     out = torch.empty((idx.shape[0], table.shape[1]), dtype=table.dtype, device=table.device)
     row_bytes = table.shape[1] * table.element_size()
-    word = next(w for w in (16, 4, 2)
-                if row_bytes % w == 0 and table.data_ptr() % w == 0 and out.data_ptr() % w == 0)
     err = _lib().toda_gather_rows(table.data_ptr(), idx.data_ptr(), out.data_ptr(),
-                                  idx.shape[0], row_bytes, word, _stream(table))
+                                  idx.shape[0], row_bytes, _word(row_bytes, table, out),
+                                  _stream(table))
     _build.check(err, "gather_rows")
     LAUNCHES["gather_rows"] += 1
     return out
 
+
+def gather_rows_taps_plain(table, idx):
+    """Plain PyTorch K9: out[t, i] = table[idx[i, t]], a zero row where -1."""
+    safe = torch.where(idx >= 0, idx.long(), 0).t()
+    return torch.where((idx >= 0).t()[..., None], table[safe],
+                       torch.zeros((), dtype=table.dtype, device=table.device))
+
+
+def gather_rows_taps(table, idx):
+    """T row gathers from one table in one launch: out[t, i] = table[idx[i, t]],
+    a zero row where idx[i, t] == -1.
+
+    Args:
+        table: (N, W) float32 or bfloat16, contiguous.
+        idx: (M, T) int32 in [-1, N), T <= 9, contiguous.
+    Returns (T, M, W) in table's dtype.
+    """
+    if table.device.type == "cpu":
+        return gather_rows_taps_plain(table, idx)
+    _check_table(table, "gather_rows_taps")
+    if idx.dtype != torch.int32 or idx.dim() != 2 or not 1 <= idx.shape[1] <= 9 \
+            or idx.device != table.device or not idx.is_contiguous():
+        raise ValueError("gather_rows_taps: idx must be a contiguous (M, T <= 9) int32 "
+                         "tensor on table's device")
+    m, ntap = idx.shape
+    out = torch.empty((ntap, m, table.shape[1]), dtype=table.dtype, device=table.device)
+    row_bytes = table.shape[1] * table.element_size()
+    err = _lib().toda_gather_rows_taps(table.data_ptr(), idx.data_ptr(), out.data_ptr(), m,
+                                       ntap, row_bytes, _word(row_bytes, table, out),
+                                       _stream(table))
+    _build.check(err, "gather_rows_taps")
+    LAUNCHES["gather_rows_taps"] += 1
+    return out

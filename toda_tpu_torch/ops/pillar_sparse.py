@@ -1,5 +1,5 @@
 """BEV-sparse / z-dense pillar substrate: voxelizer, downsampled sites,
-neighbour tables and the dense scatter.
+neighbour tables, the dense scatter and the row-major sparse convs.
 
 Counterpart of ``toda_tpu/ops/pillar_sparse.py``. Features are pillars of
 dense z columns; a pillar set is (B, P) BEV coords (y, x), ascending by BEV
@@ -13,12 +13,15 @@ a BEV key among the sorted keys, which ``torch.searchsorted`` does directly.
 The voxelizer takes the plain f32 mean path of ``voxelize_pillars_batched``
 (:236-246); its per-cell sums are kernel K4 and its unpack kernel K5
 (``ops/gather.py``). The dense scatter is K4 forward and its exact VJP, the
-row gather K6, backward.
+row gather K6, backward. The row-major 3x3x3 conv ``pillar_conv3d``
+gathers its taps with K9 and contracts z with a plain product; its
+transposed counterpart ``pillar_inv_conv3d`` gathers with K6.
 """
 
 import torch
+import torch.nn.functional as F
 
-from .gather import gather_rows, scatter_rows_add, unpack_pillars
+from .gather import gather_rows, gather_rows_taps, scatter_rows_add, unpack_pillars
 
 INT_MAX = 2**31 - 1
 
@@ -86,14 +89,20 @@ def voxelize_cells(points, points_mask, voxel_size, pc_range, grid_size, max_pil
 
 
 def voxelize_pillars_batched(points, points_mask, voxel_size, pc_range, grid_size,
-                             max_pillars, nz, out_dtype=torch.float32):
+                             max_pillars, nz, out_dtype=torch.float32, cpad=None):
     """Points -> per-cell mean features, the backbone's input.
 
     Returns dict with x (B*P, nz, cpad) ``out_dtype`` means (channels padded
-    with zeros to cpad, the next multiple of 8), pillar_coords (B, P, 2) and
-    pillar_mask (B, P). The cell sums are one K4 scatter of
-    [features, 1] rows; the mean, pad and cast are one K5 pass."""
+    with zeros to cpad, by default the next multiple of 8), pillar_coords
+    (B, P, 2) and pillar_mask (B, P). The cell sums are one K4 scatter of
+    [features, 1] rows; the mean, pad and cast are one K5 pass. With
+    ``cpad`` = C these are the means of the per-sample ``voxelize_pillars``
+    (:67-140), which UNetV2 takes."""
     bt, n, c = points.shape
+    gx, gy, gz = grid_size
+    if gx * gy * gz >= INT_MAX:
+        raise ValueError(f"grid {grid_size}: the packed (BEV key, z) key must fit int32, "
+                         "as JAX's does")
     parts = voxelize_cells(points, points_mask, voxel_size, pc_range, grid_size,
                            max_pillars, nz)
     ok = parts["ok"]
@@ -103,7 +112,7 @@ def voxelize_pillars_batched(points, points_mask, voxel_size, pc_range, grid_siz
     offs = torch.arange(bt, device=points.device)[:, None] * ncell
     idx = torch.where(ok, parts["cell"] + offs, -1).to(torch.int32).reshape(-1)
     sums = scatter_rows_add(pay.reshape(bt * n, c + 1).contiguous(), idx, bt * ncell)
-    cpad = -(-c // 8) * 8
+    cpad = -(-c // 8) * 8 if cpad is None else cpad
     x = unpack_pillars(sums, c, cpad, out_dtype).reshape(bt * max_pillars, nz, cpad)
     return {"x": x, "pillar_coords": parts["pillar_coords"],
             "pillar_mask": parts["pillar_mask"]}
@@ -220,3 +229,112 @@ def pillars_to_dense_batched(features, coords, mask, bev_shape):
     rows, flat = features.reshape(bt * p, nz * c).contiguous(), flat.to(torch.int32).reshape(-1)
     dense = _DenseScatter.apply(rows, flat, bt * ny * nx)
     return dense.reshape(bt, ny, nx, nz, c)
+
+
+def pillars_to_dense(features, coords, mask, bev_shape):
+    """(B, P, nz, C) -> (B, ny, nx, nz, C) dense by one ``index_copy`` (the
+    per-sample ``pillars_to_dense`` :764-775, an XLA scatter in JAX)."""
+    ny, nx = bev_shape
+    bt, p, nz, c = features.shape
+    offs = torch.arange(bt, device=coords.device)[:, None] * (ny * nx)
+    flat = torch.where(mask & (coords[..., 0] >= 0),
+                       coords[..., 0].to(torch.int64) * nx + coords[..., 1] + offs,
+                       bt * ny * nx)
+    dense = features.new_zeros((bt * ny * nx + 1, nz * c))
+    dense.index_copy_(0, flat.reshape(-1), features.reshape(bt * p, nz * c))
+    return dense[:-1].reshape(bt, ny, nx, nz, c)
+
+
+# the 3x3 BEV taps grouped by BEV row (dy): a group's taps differ by +-1 column
+TAP_GROUPS = ((0, 1, 2), (3, 4, 5), (6, 7, 8))
+
+
+def z_conv(g, w, z_stride):
+    """Each row's 3-wide z contraction, VALID, stride ``z_stride`` (the
+    ``lax.conv_general_dilated`` of ``tap_conv`` :409-419).
+
+    g (M, L, C) rows of L z cells, w (3, C, Cout) -> (M, (L - 3) // s + 1,
+    Cout) in g's dtype: out[m, zo] = sum_dz g[m, zo*s + dz] @ w[dz]. The
+    rows are viewed as a channels-last (M, C, L, 1) image, so the product is
+    one (3, 1) convolution that reads g where it lies. C is padded with
+    zero channels (and w with zero rows) to a multiple of 16: cuDNN has no
+    fast kernel for UNetV2's 5 input channels, and the padded product is
+    the faster one on an H100."""
+    if g.shape[-1] % 16:
+        pad = -g.shape[-1] % 16
+        g, w = F.pad(g, (0, pad)), F.pad(w, (0, 0, 0, pad))
+    m, length, c = g.shape
+    x = g.view(m, length, 1, c).permute(0, 3, 1, 2)
+    y = F.conv2d(x, w.permute(2, 1, 0).unsqueeze(-1).to(g.dtype), stride=(z_stride, 1))
+    return y.squeeze(3).transpose(1, 2)
+
+
+def pillar_conv3d(x, idxf, weights, out_maskf, z_stride=1, identity_tap=None):
+    """Row-major 3x3x3 conv (``pillar_conv3d`` :695 / ``_conv_fwd_impl``
+    :398-428), forward, on folded rows.
+
+    Args:
+        x: (M_in, nz, C) folded input rows.
+        idxf: (M_out, 9) int32 folded neighbour table into the input rows,
+            -1 missing; tap t = dy*3 + dx.
+        weights: (3, 3, 3, C, Cout) in (dz, dy, dx) order, in x's dtype.
+        out_maskf: (M_out,) bool.
+        z_stride: 1 or 2; identity_tap: the tap whose neighbour is the row
+            itself (4 for a submanifold conv), taken on x without a gather.
+    Returns (M_out, ceil(nz / z_stride), Cout) in x's dtype, zero on invalid
+    rows.
+
+    The input gets one zero z cell on each side (``(M_in, (nz+2)*C)``); one
+    K9 launch per dy group gathers the group's taps, and each tap's z
+    contraction is a plain product (``z_conv``). Contributions are summed
+    in tap order, the identity tap last, as JAX sums them."""
+    m_in, nz, c = x.shape
+    table = F.pad(x, (0, 0, 1, 1)).reshape(m_in, (nz + 2) * c)
+    acc = None
+    for grp in TAP_GROUPS:
+        taps = [t for t in grp if t != identity_tap]
+        gathered = gather_rows_taps(table, idxf[:, taps].contiguous())
+        for k, t in enumerate(taps):
+            contrib = z_conv(gathered[k].view(-1, nz + 2, c), weights[:, t // 3, t % 3],
+                             z_stride)
+            acc = contrib if acc is None else acc.add_(contrib)
+        del gathered
+    if identity_tap is not None:
+        dy, dx = divmod(identity_tap, 3)
+        acc.add_(z_conv(table.view(m_in, nz + 2, c), weights[:, dy, dx], z_stride))
+    return acc.masked_fill_(~out_maskf[:, None, None], 0).contiguous()
+
+
+def pillar_inv_conv3d(x, inv_idxf, weights, fine_maskf, nz_fine):
+    """Transposed 3x3x3 stride-2 conv onto the known fine sites
+    (``pillar_inv_conv3d`` :1211-1255), on folded rows.
+
+    Args:
+        x: (M_c, nz_c, C) folded coarse rows.
+        inv_idxf: (M_f, 9) int32 folded table: for each fine row and tap
+            t = dy*3 + dx, the coarse row o with 2*o + (dy, dx) - 1 == fine.
+        weights: (3, 3, 3, C, Cout) in (dz, dy, dx) order, in x's dtype.
+        fine_maskf: (M_f,) bool; nz_fine: fine z cells.
+    Returns (M_f, nz_fine, Cout).
+
+    Nine K6 gathers of the coarse rows; fine z = 2*zc + dz - 1, so dz = 1
+    adds to the even fine cells and dz = 0, 2 to the odd ones."""
+    m_c, nz_c, c = x.shape
+    m_f = inv_idxf.shape[0]
+    table = x.reshape(m_c, nz_c * c)
+    out = x.new_zeros((m_f, nz_fine, weights.shape[-1]))
+    for t in range(9):
+        dy, dx = divmod(t, 3)
+        g = gather_rows(table, inv_idxf[:, t].contiguous()).view(m_f, nz_c, c)
+        for dz in range(3):
+            vals = g @ weights[dz, dy, dx]
+            if dz == 1:
+                n = min(nz_c, (nz_fine + 1) // 2)
+                out[:, 0:2 * n:2] += vals[:, :n]
+            else:
+                zc0 = 1 if dz == 0 else 0
+                zf0 = 2 * zc0 + dz - 1
+                n = min(nz_c - zc0, max((nz_fine - zf0 + 1) // 2, 0))
+                if n > 0:
+                    out[:, zf0:zf0 + 2 * n:2] += vals[:, zc0:zc0 + n]
+    return out.masked_fill_(~fine_maskf[:, None, None], 0)

@@ -22,20 +22,26 @@ def make_predict_step(bundle):
     return predict_step
 
 
-def compute_recall(pred_boxes, pred_mask, gt_boxes, thresh_list):
+def compute_recall(pred_boxes, pred_mask, gt_boxes, thresh_list, rois=None, roi_mask=None):
     """Per-frame recall counters (host). gt_boxes (M, 8) padded, class id in
-    the last column."""
+    the last column. With ``rois`` (and their mask), the first-stage
+    proposals' recall too (``recall_roi_<t>``)."""
     gt_valid = gt_boxes[:, -1] > 0
     gts = gt_boxes[gt_valid][:, :7]
     out = {f"recall_{t}": 0 for t in thresh_list}
+    if rois is not None:
+        out.update({f"recall_roi_{t}": 0 for t in thresh_list})
     out["gt"] = len(gts)
     if len(gts) == 0:
         return out
-    preds = pred_boxes[pred_mask.astype(bool)][:, :7]
-    if len(preds):
-        best = box_utils.boxes_bev_iou_cpu(gts, preds).max(axis=1)
-        for t in thresh_list:
-            out[f"recall_{t}"] = int((best > t).sum())
+    found = [("recall", pred_boxes[pred_mask.astype(bool)][:, :7])]
+    if rois is not None:
+        found.append(("recall_roi", rois[roi_mask.astype(bool)][:, :7]))
+    for key, boxes in found:
+        if len(boxes):
+            best = box_utils.boxes_bev_iou_cpu(gts, boxes).max(axis=1)
+            for t in thresh_list:
+                out[f"{key}_{t}"] = int((best > t).sum())
     return out
 
 
@@ -43,14 +49,17 @@ def eval_one_epoch(bundle, loader, dataset, class_names, logger=None, predict_st
     """Predict every batch of ``loader``, then recall and the dataset metric.
 
     Returns (result_dict, det_annos). result_dict carries the dataset's
-    metrics, ``recall/<t>``, ``sec_per_example`` (steady state, from the
+    metrics, ``recall/<t>`` (and ``recall/roi_<t>`` when the detections
+    carry first-stage RoIs), ``sec_per_example`` (steady state, from the
     second batch on, host clock around device work that ends in a copy to the
     host) and ``first_batch_sec``."""
     predict_step = predict_step or make_predict_step(bundle)
     thresh_list = bundle.post_cfg.get("RECALL_THRESH_LIST", [0.3, 0.5, 0.7])
     det_annos = []
     recall = {f"recall_{t}": 0 for t in thresh_list}
+    recall.update({f"recall_roi_{t}": 0 for t in thresh_list})
     recall["gt"] = 0
+    has_rois = False
     t0 = time.time()
     n_frames = 0
     first_batch_sec = None
@@ -71,9 +80,12 @@ def eval_one_epoch(bundle, loader, dataset, class_names, logger=None, predict_st
             for i in range(b)
         ]
         if "gt_boxes" in batch:
+            has_rois = has_rois or "rois" in dets
             for i in range(b):
                 r = compute_recall(dets["pred_boxes"][i], dets["pred_mask"][i],
-                                   np.asarray(batch["gt_boxes"][i]), thresh_list)
+                                   np.asarray(batch["gt_boxes"][i]), thresh_list,
+                                   rois=dets["rois"][i] if "rois" in dets else None,
+                                   roi_mask=dets["roi_mask"][i] if "rois" in dets else None)
                 for k in r:
                     recall[k] += r[k]
         det_annos.extend(dataset.generate_prediction_dicts(batch, pred_dicts, class_names))
@@ -90,6 +102,9 @@ def eval_one_epoch(bundle, loader, dataset, class_names, logger=None, predict_st
         logger.info("\n%s", result_str)
     result_dict.update(
         {f"recall/{t}": recall[f"recall_{t}"] / max(recall["gt"], 1) for t in thresh_list})
+    if has_rois:
+        result_dict.update({f"recall/roi_{t}": recall[f"recall_roi_{t}"] / max(recall["gt"], 1)
+                            for t in thresh_list})
     result_dict["sec_per_example"] = sec_per_ex
     result_dict["first_batch_sec"] = first_batch_sec or 0.0
     return result_dict, det_annos

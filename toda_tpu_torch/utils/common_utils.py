@@ -24,6 +24,21 @@ def limit_period(val, offset=0.5, period=np.pi):
     return val - np.floor(val / period + offset) * period
 
 
+def limit_period_torch(val, offset=0.5, period=np.pi):
+    """``limit_period`` on tensors (``limit_period_jnp``)."""
+    return val - torch.floor(val / period + offset) * period
+
+
+def rotate_points_along_z_torch(points, angle):
+    """z-rotation of tensors (``rotate_points_along_z_jnp``): points
+    (..., N, 3 + C), angle (...,), counter-clockwise radians."""
+    cosa, sina = torch.cos(angle), torch.sin(angle)
+    zeros, ones = torch.zeros_like(cosa), torch.ones_like(cosa)
+    rot = torch.stack([cosa, sina, zeros, -sina, cosa, zeros, zeros, zeros, ones],
+                      dim=-1).reshape(angle.shape + (3, 3))
+    return torch.cat([points[..., :3] @ rot, points[..., 3:]], dim=-1)
+
+
 def rotate_points_along_z(points, angle):
     """Rotate points around the z-axis (counter-clockwise, radians).
     points (B, N, 3 + C) with angle (B,), or (N, 3 + C) with a scalar."""
