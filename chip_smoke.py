@@ -40,13 +40,29 @@ Phases (none catches its own failure; any failure exits non-zero):
      4 scans: outputs finite, RoI recall reported, launches per forward
      asserted (K9 63, K6 27, K4 1, K5 1); then the steady predict
      throughput, peak memory and a torch.profiler window of two steps;
- 14. one {"kernels": [...]} line (every kernel's row sums its recorded
+ 14. tiny SECOND in f32 (``second_tiny``, ``FUSED_CONV: False``): three
+     train steps on cuda and on cpu from the same weights and batch; on
+     the card the fused contract (K1-K3) on the same weights and batch:
+     forward outputs and step-1 gradients must agree; one
+     ``pillar_conv3d_t`` with Cout 8 (K8's per-group backward) against its
+     cpu run;
+ 15. full-width SECOND (``second_cfg``: the Waymo config on synthetic
+     scenes, ``FUSED_CONV: False``): with every launch counter at 0,
+     ``eval_one_epoch`` over 3 batches of 4 scans (K7 7, K8 12, K4 2, K5 1
+     launches per forward), the steady predict throughput and a profile;
+     one recorded train step feeds every K7 (18) and K8 (12) call to its
+     kernel and its plain version (exactly equal) and both are timed; with
+     every counter at 0, train steps with their launches asserted (K7 18,
+     K8 12, K4 2, K5 1, K6 1 per step), the steady train throughput, peak
+     memory and a profile;
+ 16. one {"kernels": [...]} line (every kernel's row sums its recorded
      calls over the paths that run it, and its launches over their counted
      runs), then the {"ok": true, "device": ...} line.
 Exits non-zero with no result when there is no CUDA device or the port is
 missing.
 """
 
+import itertools
 import json
 import math
 import subprocess
@@ -58,6 +74,8 @@ REPO = Path(__file__).resolve().parent
 BATCH = 4
 N_BATCHES = 5
 PARTA2_BATCHES = 3
+SECOND_BATCHES = 3
+SECOND_TRAIN_STEPS = 5
 SEED = 0
 TRAIN_STEPS = 20
 SCHEDULE_STEPS = 100  # OneCycle length: every step here stays in its warm-up
@@ -147,6 +165,60 @@ def parta2_cfg():
     d.NUM_OBJECTS = [20, 40]
     d.MAX_GT_BOXES = 64
     d.NUM_SCENES = BATCH * PARTA2_BATCHES
+    return cfg
+
+
+def second_cfg():
+    """SECOND at full width: ``MODEL`` and ``CLASS_NAMES`` of
+    tools/cfgs/waymo_models/second.yaml with ``BACKBONE_3D.FUSED_CONV:
+    False`` (PillarBackBone8x CHANNELS [16, 32, 64, 64], MAX_PILLARS 65536:
+    stage caps 65536, 32768, 16384, 8192 a sample, BF16; HeightCompression;
+    BEV LAYER_NUMS [5, 5], NUM_FILTERS [128, 256], NUM_UPSAMPLE_FILTERS
+    [256, 256]; AnchorHeadSingle with 3 classes x 2 rotations, the direction
+    classifier, AxisAlignedTargetAssigner, ResidualCoder, loss weights cls
+    1.0 / loc 2.0 / dir 0.2; NMS 0.7, pre 4096 / post 500, score 0.1;
+    adam_onecycle at LR 0.003, weight decay 0.01, clip 10) and the Waymo
+    data settings of ``parta2_cfg``. Training augments with
+    waymo_dataset.yaml's list without gt_sampling: world flip along x and
+    y, rotation +-pi/4, scaling [0.95, 1.05]. Cuts: synthetic scenes (150k
+    uniform background points, 20-40 objects, at most 64 gt boxes a scan)
+    instead of Waymo scans; no gt_sampling, which pastes objects from
+    waymo_dbinfos_train.pkl, a file the repo does not hold."""
+    from toda_tpu_torch.config import EDict, cfg_from_yaml_file
+
+    cfg = cfg_from_yaml_file(str(REPO / "tools/cfgs/waymo_models/second.yaml"), EDict())
+    d = cfg.DATA_CONFIG
+    d.DATASET = "SyntheticDataset"
+    d.NUM_BACKGROUND_POINTS = 150000
+    d.NUM_OBJECTS = [20, 40]
+    d.MAX_GT_BOXES = 64
+    d.NUM_SCENES = BATCH * SECOND_BATCHES
+    d.DATA_AUGMENTOR.DISABLE_AUG_LIST = ["gt_sampling"]
+    cfg.MODEL.BACKBONE_3D.FUSED_CONV = False
+    return cfg
+
+
+def second_tiny(cfg, fused=False):
+    """A tiny SECOND from ``cfg``, a loaded second_synthetic.yaml (of
+    either package): range [-16, 16]^2 x [-3, 1], voxel 0.5 (a few hundred
+    pillars), CHANNELS [16, 32, 32, 32], f32, ``FUSED_CONV`` = ``fused``.
+    The first conv (8 channels) and the down convs take K8's per-group
+    forward, the other convs K7's stacked one; every backward takes K7."""
+    d = cfg.DATA_CONFIG
+    d.POINT_CLOUD_RANGE = [-16.0, -16.0, -3.0, 16.0, 16.0, 1.0]
+    d.DATA_PROCESSOR[2].NUM_POINTS = {"train": 1024, "test": 1024}
+    d.DATA_PROCESSOR[3].VOXEL_SIZE = [0.5, 0.5, 0.5]
+    d.DATA_PROCESSOR[3].MAX_NUMBER_OF_VOXELS = {"train": 1024, "test": 1024}
+    d.NUM_SCENES = 2
+    d.NUM_OBJECTS = [2, 4]
+    m = cfg.MODEL
+    m.BACKBONE_3D.CHANNELS = [16, 32, 32, 32]
+    m.BACKBONE_3D.MAX_PILLARS = 1024
+    m.BACKBONE_3D.BF16 = False
+    m.BACKBONE_3D.FUSED_CONV = fused
+    m.BACKBONE_2D.LAYER_NUMS = [1, 1]
+    m.BACKBONE_2D.NUM_FILTERS = [16, 32]
+    m.BACKBONE_2D.NUM_UPSAMPLE_FILTERS = [16, 16]
     return cfg
 
 
@@ -580,6 +652,7 @@ def phase_main_path(bundle, cfg, loader, dataset):
     n_fwd = len(loader)
     assert launches["K1"] == 11 * n_fwd, launches
     assert launches["K4"] == 2 * n_fwd and launches["K5"] == n_fwd, launches
+    assert gather.LAUNCHES["gather9_stacked_t"] == gather.LAUNCHES["gather_rows_taps_t"] == 0
     assert len(annos) == BATCH * n_fwd
     for a in annos:
         assert np.isfinite(a["boxes_lidar"]).all() and np.isfinite(a["score"]).all()
@@ -593,20 +666,9 @@ def phase_main_path(bundle, cfg, loader, dataset):
 
     # steady-state predict (forward + decode + NMS) as bench.py times it:
     # device-resident batches, one host readback per step, best of 3 passes
-    dev_batches = [bundle.to_device(b) for b in loader]
-    bundle.predict(dev_batches[0])
-    torch.cuda.synchronize()
-    iters, best = 10, 0.0
-    for _ in range(3):
-        t = time.time()
-        check = 0.0
-        for i in range(iters):
-            dets = bundle.predict(dev_batches[i % len(dev_batches)])
-            check += float(dets["pred_scores"][0, 0])
-        assert math.isfinite(check)
-        best = max(best, iters * BATCH / (time.time() - t))
+    best = steady_rate(predict_run(bundle, loader))
     log(f"phase predict throughput: {best:.2f} scans/s steady state (batch {BATCH}, "
-        f"best of 3 x {iters} steps)")
+        f"best of 3 x 10 steps)")
     return launches, best
 
 
@@ -636,6 +698,7 @@ def phase_train_main(bundle, state, step, batches):
                 "dW_raw": fc["fused_bnconv9_dw_raw"]}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     assert launches == {k: n * TRAIN_STEPS for k, n in per_step.items()}, launches
+    assert ga["gather9_stacked_t"] == ga["gather_rows_taps_t"] == 0
     assert all(math.isfinite(v) for v in losses), losses
     log(f"phase train main path: {TRAIN_STEPS} make_train_step steps (batch {BATCH}, "
         f"numpy batches in) in {wall:.1f}s; launches {launches}; losses "
@@ -643,19 +706,10 @@ def phase_train_main(bundle, state, step, batches):
 
     # steady state as bench.py times training: device-resident batches, the
     # loss read back every step, best of 3 passes
-    dev_batches = [bundle.to_device(b) for b in batches]
-    step(state, dev_batches[0])
-    torch.cuda.synchronize()
-    iters, best = 10, 0.0
-    for _ in range(3):
-        t = time.time()
-        for i in range(iters):
-            _, tb = step(state, dev_batches[i % len(dev_batches)])
-            assert math.isfinite(float(tb["loss"]))
-        best = max(best, iters * BATCH / (time.time() - t))
+    best = steady_rate(train_run(bundle, state, step, batches))
     log(f"phase train throughput: {best:.2f} scans/s steady state (batch {BATCH}, best of "
-        f"3 x {iters} steps, loss read back every step)")
-    return launches, best, peak_gib, dev_batches[0]
+        f"3 x 10 steps, loss read back every step)")
+    return launches, best, peak_gib, bundle.to_device(batches[0])
 
 
 PROFILER_RANGES = ("Buffer Flush", "Activity Buffer Request")
@@ -878,6 +932,7 @@ def phase_parta2_main(bundle, cfg, loader, dataset):
     assert n_fwd >= 3, n_fwd
     assert launches == {"K9": 63 * n_fwd, "K6": 27 * n_fwd, "K4": n_fwd, "K5": n_fwd,
                         "K1": 0}, launches
+    assert ga["gather9_stacked_t"] == ga["gather_rows_taps_t"] == 0
     assert len(annos) == BATCH * n_fwd
     for a in annos:
         assert np.isfinite(a["boxes_lidar"]).all() and np.isfinite(a["score"]).all()
@@ -890,21 +945,377 @@ def phase_parta2_main(bundle, cfg, loader, dataset):
         f"eval sec/example {result['sec_per_example']:.4f}; peak device memory "
         f"{peak_gib:.2f} GiB")
 
-    dev_batches = [bundle.to_device(b) for b in loader]
-    bundle.predict(dev_batches[0])
+    best = steady_rate(predict_run(bundle, loader))
+    log(f"phase PartA2 predict throughput: {best:.2f} scans/s steady state (batch {BATCH}, "
+        f"best of 3 x 10 steps)")
+    return launches, best, bundle.to_device(next(iter(loader)))
+
+
+SECOND_HEAD_KEYS = ("spatial_features_2d", "cls_preds", "box_preds", "dir_cls_preds")
+
+
+def rel_err(a, b):
+    """max |a - b| over max(1e-12, max |a|), b moved to a's device."""
+    return ((a - b.to(a.device)).abs().max() / a.abs().max().clamp(min=1e-12)).item()
+
+
+def phase_second_tiny():
+    """Tiny SECOND in f32 (``second_tiny``, legacy contract): three train
+    steps on cuda and on cpu from the same weights and batch, held as
+    ``phase_tiny_train_parity`` holds CenterPoint-Res, with the eval
+    forward before them to 1e-3 elementwise. On the card, the fused
+    contract (K1-K3) on the same weights and batch: eval forward outputs
+    within 1e-4 of each tensor's largest magnitude, the first train step's
+    loss within 1e-5, and in training mode the 3D backbone's output within
+    1e-4 and its parameters' gradients, for one fixed cotangent on that
+    output, within 1e-3 of each parameter's largest (f32 both; the two
+    contracts sum in other orders). The whole model's gradients are not
+    held: the tiny BEV map has 128 cells, and a 1e-5 change of one input
+    (the two contracts' outputs differ by that much) can flip a relu where
+    the loss gradient is large, which moves the BEV's gradients by percents
+    of their largest; their difference is logged. Then one
+    ``pillar_conv3d_t`` with Cout 8 (one K7 launch forward, K8's three
+    per-group launches backward) against its cpu run, to 1e-4 of each
+    result's largest magnitude."""
+    import numpy as np
+    import torch
+
+    from toda_tpu_torch.config import EDict, cfg_from_yaml_file
+    from toda_tpu_torch.datasets import build_dataloader
+    from toda_tpu_torch.models import build_network
+    from toda_tpu_torch.ops import fused_conv, gather, pillar_sparse
+    from toda_tpu_torch.runtime.train_utils import create_train_state, make_train_step
+
+    cfg = second_tiny(cfg_from_yaml_file(
+        str(REPO / "tools/cfgs/synthetic_models/second_synthetic.yaml"), EDict()))
+    np.random.seed(SEED)
+    ds, loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, batch_size=2,
+                                     training=True)
+    batch = next(iter(loader))
+    runs = {}
+    cot = None
+    for device, fused in (("cpu", False), ("cuda", False), ("cuda", True)):
+        cfg.MODEL.BACKBONE_3D.FUSED_CONV = fused
+        bundle = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), ds, device=device, seed=SEED)
+        out = bundle.forward(bundle.to_device(batch))
+        heads = {k: out[k].cpu() for k in SECOND_HEAD_KEYS}
+        # the 3D backbone alone in training mode, one fixed output cotangent
+        probe = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), ds, device=device, seed=SEED)
+        probe.module.train()
+        enc = probe.module.backbone_3d(probe.to_device(batch))["encoded_spconv_tensor"]
+        if cot is None:
+            cot = torch.randn(enc.shape, generator=torch.Generator().manual_seed(SEED))
+        enc.backward(cot.to(enc.device))
+        bb3d = (enc.detach().cpu(), {n: p.grad.cpu() for n, p in
+                                     probe.module.backbone_3d.named_parameters()})
+        del probe, enc
+        state, _ = create_train_state(bundle, cfg.OPTIMIZATION, 10)
+        init = {k: v.detach().cpu().clone() for k, v in bundle.module.state_dict().items()}
+        step = make_train_step(bundle)
+        losses, grads = [], None
+        reset_launches()
+        for _ in range(1 if fused else 3):
+            losses.append(float(step(state, batch)[1]["loss"]))
+            if grads is None:
+                grads = {n: p.grad.cpu().clone() for n, p in bundle.module.named_parameters()}
+        runs[device, fused] = dict(heads=heads, losses=losses, grads=grads, init=init, bb3d=bb3d,
+                                   final=bundle.module.state_dict(), opt=state,
+                                   launches=dict(gather.LAUNCHES, **fused_conv.LAUNCHES))
+    c, g, f = runs["cpu", False], runs["cuda", False], runs["cuda", True]
+    assert g["launches"]["gather9_stacked_t"] > 0 and g["launches"]["gather_rows_taps_t"] > 0, \
+        g["launches"]
+    for k in SECOND_HEAD_KEYS:
+        assert torch.allclose(c["heads"][k], g["heads"][k], rtol=1e-3, atol=1e-3), k
+    for a, b in zip(c["losses"], g["losses"]):
+        assert abs(a - b) <= 1e-3 * abs(a), f"tiny SECOND cuda/cpu losses {c['losses']} vs {g['losses']}"
+    assert all(torch.equal(c["init"][k], g["init"][k]) for k in c["init"]), "the inits differ"
+    lr_sum = sum(c["opt"].lr_fn(i) for i in range(3))
+    bad, worst = update_mismatches(g["final"], c["final"], c["init"], c["grads"], lr_sum)
+    assert not bad, f"tiny SECOND cuda/cpu updates differ: {bad[:5]}"
+    for k in c["final"]:
+        if k.endswith(("running_mean", "running_var")):
+            assert torch.allclose(g["final"][k].cpu(), c["final"][k], rtol=1e-4, atol=1e-4), k
+    fwd_err = max(rel_err(g["heads"][k], f["heads"][k]) for k in SECOND_HEAD_KEYS)
+    (genc, ggrad), (fenc, fgrad) = g["bb3d"], f["bb3d"]
+    enc_err = rel_err(genc, fenc)
+    grad_err, grad_name = max((rel_err(ggrad[n], fgrad[n]), n) for n in ggrad)
+    assert fwd_err <= 1e-4 and enc_err <= 1e-4, (fwd_err, enc_err)
+    assert grad_err <= 1e-3, (grad_name, grad_err)
+    assert abs(f["losses"][0] - g["losses"][0]) <= 1e-5 * abs(g["losses"][0]), \
+        (f["losses"], g["losses"])
+    assert f["launches"]["fused_bnconv9"] > 0 and f["launches"]["gather9_stacked_t"] == 0
+    whole, whole_name = max((rel_err(g["grads"][n], f["grads"][n]), n) for n in g["grads"])
+    log(f"phase SECOND tiny cuda-vs-cpu (f32, legacy contract, 3 steps): losses {c['losses']} "
+        f"vs {g['losses']}; updates within 1e-3 x sum(LR) where live (max {worst:.3g}); BN "
+        f"statistics within 1e-4; fused vs legacy contract on the card: eval outputs "
+        f"{fwd_err:.3g} of max (tol 1e-4), 3D backbone output {enc_err:.3g} (tol 1e-4) and "
+        f"gradients {grad_err:.3g} of max (tol 1e-3, {grad_name}), step-1 loss "
+        f"{f['losses'][0]:.6f} vs {g['losses'][0]:.6f}; whole-model step-1 gradients "
+        f"{whole:.3g} of max ({whole_name}; not held, see the docstring)")
+
+    # one conv with Cout 8: K7 forward, the per-group K8 backward
+    gen = torch.Generator().manual_seed(SEED)
+    p, nz, c_in, cout = 2048, 8, 16, 8
+    keys = torch.randperm(128 * 128, generator=gen)[:p - 48].sort().values
+    coords = torch.full((1, p, 2), -1, dtype=torch.int32)
+    coords[0, :p - 48, 0], coords[0, :p - 48, 1] = keys // 128, keys % 128
+    mask = coords[..., 0] >= 0
+    idxf = pillar_sparse.bev_neighbor_idx_sorted_batched(coords, mask, coords, mask,
+                                                         (128, 128), 1)[0]
+    x = torch.randn(nz * c_in, p, generator=gen) * mask[0]
+    w = torch.randn(3, 3, 3, c_in, cout, generator=gen) * 0.2
+    ct = torch.randn(nz * cout, p, generator=gen)
+    res = {}
+    for device in ("cpu", "cuda"):
+        xd, wd = (v.detach().to(device).requires_grad_() for v in (x, w))
+        i = idxf.to(device)
+        reset_launches()
+        out = pillar_sparse.pillar_conv3d_t(xd, i, wd, mask[0].to(device), nz, 1, 4,
+                                            i.flip(1).contiguous())
+        out.backward(ct.to(device))
+        res[device] = (out.detach().cpu(), xd.grad.cpu(), wd.grad.cpu())
+    launches = {k: gather.LAUNCHES[k] for k in ("gather9_stacked_t", "gather_rows_taps_t")}
+    assert launches == {"gather9_stacked_t": 1, "gather_rows_taps_t": 3}, launches
+    errs = [rel_err(a, b) for a, b in zip(res["cpu"], res["cuda"])]
+    assert max(errs) <= 1e-4, errs
+    log(f"phase pillar_conv3d_t Cout 8 cuda-vs-cpu (f32): out, dx, dW within "
+        f"{max(errs):.3g} of max (tol 1e-4); launches {launches}")
+
+
+def column_gather_work(table, idx, taps):
+    """(bytes, 0 flops) of one K7 or K8 call: the table columns that idx
+    names read once, the (taps x W, M) output written once, idx read once."""
+    import torch
+
+    cols = int(torch.unique(idx[idx >= 0]).numel())
+    eb, w = table.element_size(), table.shape[0]
+    return cols * w * eb + taps * w * idx.shape[0] * eb + idx.numel() * 4, 0
+
+
+def check_column_gathers(k7_calls, k8_calls):
+    """Hold each recorded K7 and K8 call against its plain version (exact)
+    and time it beside its plain version and the library's index_selects."""
+    import torch
+
+    from toda_tpu_torch.ops import gather
+
+    rows = {"K7": [], "K8": []}
+    for key, calls, fn, plain in (
+            ("K7", k7_calls, gather.gather9_stacked_t, gather.gather9_stacked_t_plain),
+            ("K8", k8_calls, gather.gather_rows_taps_t, gather.gather_rows_taps_t_plain)):
+        for (table, idx), kw in calls:
+            out = fn(table, idx, **kw)
+            assert torch.equal(out, plain(table, idx, **kw)), \
+                f"{key} {tuple(table.shape)} {kw} differs from its plain version"
+            del out
+            w, n = table.shape
+            padded = torch.cat([table, table.new_zeros((w, 1))], dim=1)
+            safe = torch.where(idx >= 0, idx.long(), n).t().contiguous()
+            chunk = kw.get("chunk")
+
+            def library(padded=padded, safe=safe, chunk=chunk):
+                g = torch.stack([padded.index_select(1, s) for s in safe])
+                if chunk is not None:  # K7's [W / chunk][t][chunk] row order
+                    g = g.view(9, -1, chunk, g.shape[-1]).transpose(0, 1).contiguous()
+                return g
+
+            rows[key].append(dict(
+                shape=f"table{tuple(table.shape)} {table.dtype} idx{tuple(idx.shape)} "
+                      f"{kw or ''}".strip(),
+                err=0.0, tol="0 (exact)", ms=cuda_ms(lambda: fn(table, idx, **kw), 5),
+                plain_ms=cuda_ms(lambda: plain(table, idx, **kw), 2),
+                library_ms=cuda_ms(library, 5),
+                bound=bound_ms(*column_gather_work(table, idx, idx.shape[1]), H100_F32_FLOPS)))
+            del padded, safe, library
+    return rows
+
+
+def zconv_choice(call):
+    """The stacked conv's z contraction two ways, on the first recorded K7
+    call (stage 1's second conv, C = Cout = 16, bf16): ``_zconv_t``'s nine
+    batched products over the output z, and one convolution with the taps
+    as input channels and a (3C, 1) kernel stepping C rows, which is what
+    JAX's ``conv_general_dilated`` computes. Logs both times; asserts only
+    that they agree to bf16 rounding."""
+    import torch
+    import torch.nn.functional as F
+
+    from toda_tpu_torch.ops import gather, pillar_sparse
+
+    (table, idx), kw = call
+    c = cout = 16
+    g = gather.gather9_stacked_t(table, idx, **kw).view(9, table.shape[0], -1)
+    taps_w = (torch.randn((9, 3, c, cout), generator=torch.Generator().manual_seed(SEED))
+              * (2.0 / (27 * c)) ** 0.5).to(device=g.device, dtype=g.dtype)
+    k = taps_w.permute(3, 0, 1, 2).reshape(cout, 9, 3 * c, 1)
+
+    def tall():
+        return F.conv2d(g.view(1, *g.shape), k, stride=(c, 1))[0].transpose(0, 1)
+
+    def products():
+        return pillar_sparse._zconv_t(g, taps_w, c, 1)
+
+    a, b = products().float(), tall().float()
+    err = ((a - b).abs().max() / b.abs().max()).item()
+    assert err <= 2.0 ** -6, err  # nine bf16 roundings against one
+    log(f"  z contraction of {tuple(g.shape)} {g.dtype} taps (C = Cout = {c}): nine batched "
+        f"products {cuda_ms(products, 5):.3f} ms, one tall-kernel convolution "
+        f"{cuda_ms(tall, 5):.3f} ms; max diff {err:.3g} of max")
+
+
+def phase_second_kernels(state, step, batch):
+    """Record every K7 and K8 call of one full-width train step (forward and
+    backward), then hold each kernel against its plain version on them and
+    time both."""
+    import torch
+
+    from toda_tpu_torch.ops import pillar_sparse
+
+    with Recorder(pillar_sparse, "gather9_stacked_t") as k7, \
+            Recorder(pillar_sparse, "gather_rows_taps_t") as k8:
+        _, tb = step(state, batch)
+        loss = float(tb["loss"])
+    assert math.isfinite(loss), loss
+    assert len(k7.calls) == 18 and len(k8.calls) == 12, (len(k7.calls), len(k8.calls))
+    log(f"phase SECOND kernels: one recorded train step, loss {loss:.4f}; {len(k7.calls)} K7 "
+        f"and {len(k8.calls)} K8 calls")
+    with torch.no_grad():
+        rows = check_column_gathers(k7.calls, k8.calls)
+        zconv_choice(k7.calls[0])
+    del k7, k8
+    log_rows(rows)
+    for key in ("K7", "K8"):
+        log(f"  {key} per train step: {sum(r['ms'] for r in rows[key]):.3f} ms over "
+            f"{len(rows[key])} calls, bound {sum(r['bound'][0] for r in rows[key]):.3f} ms, "
+            f"plain {sum(r['plain_ms'] for r in rows[key]):.3f} ms, index_select "
+            f"{sum(r['library_ms'] for r in rows[key]):.3f} ms")
+    return rows
+
+
+def second_launches():
+    from toda_tpu_torch.ops import fused_conv, gather
+
+    ga = gather.LAUNCHES
+    return {"K7": ga["gather9_stacked_t"], "K8": ga["gather_rows_taps_t"],
+            "K4": ga["scatter_rows_add"], "K5": ga["unpack_pillars"], "K6": ga["gather_rows"],
+            "K9": ga["gather_rows_taps"], "K1-K3": sum(fused_conv.LAUNCHES.values())}
+
+
+def predict_run(bundle, batches):
+    """One ``predict`` per call over the device-resident batches in turn,
+    returning a score read back to the host."""
+    dev = [bundle.to_device(b) for b in batches]
+    turn = itertools.count()
+    return lambda: float(bundle.predict(dev[next(turn) % len(dev)])["pred_scores"][0, 0])
+
+
+def train_run(bundle, state, step, batches):
+    """One train step per call over the device-resident batches in turn,
+    returning its loss read back to the host."""
+    dev = [bundle.to_device(b) for b in batches]
+    turn = itertools.count()
+    return lambda: float(step(state, dev[next(turn) % len(dev)])[1]["loss"])
+
+
+def steady_rate(run, iters=10):
+    """Scans/s of ``run`` (one batch of BATCH, ending in a host readback):
+    best of 3 passes of ``iters`` runs after one warm-up."""
+    import torch
+
+    run()
     torch.cuda.synchronize()
-    iters, best = 10, 0.0
+    best = 0.0
     for _ in range(3):
         t = time.time()
-        check = 0.0
-        for i in range(iters):
-            dets = bundle.predict(dev_batches[i % len(dev_batches)])
-            check += float(dets["pred_scores"][0, 0])
-        assert math.isfinite(check)
+        for _ in range(iters):
+            assert math.isfinite(run())
         best = max(best, iters * BATCH / (time.time() - t))
-    log(f"phase PartA2 predict throughput: {best:.2f} scans/s steady state (batch {BATCH}, "
-        f"best of 3 x {iters} steps)")
-    return launches, best, dev_batches[0]
+    return best
+
+
+def phase_second(cfg):
+    """Full-width SECOND on its main path: ``eval_one_epoch`` and predict
+    throughput (random weights), then training (flax-like init): the K7 /
+    K8 check on one recorded step, counted steps, throughput, peak memory,
+    and a profile of each. Returns (rows, launches, predict and train
+    scans/s, train peak GiB)."""
+    import numpy as np
+    import torch
+
+    from toda_tpu_torch.datasets import build_dataloader
+    from toda_tpu_torch.models import build_network
+    from toda_tpu_torch.runtime.eval_utils import eval_one_epoch
+    from toda_tpu_torch.runtime.train_utils import create_train_state, make_train_step
+    from toda_tpu_torch.weights import randomize_
+
+    np.random.seed(SEED)
+    dataset, loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, batch_size=BATCH)
+    bundle = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), dataset, device="cuda")
+    randomize_(bundle.module, SEED)
+    first = next(iter(loader))
+    log(f"SECOND full width: grid {dataset.grid_size.tolist()}, {first['points'].shape[1]} "
+        f"points/scan, {int(first['points_mask'].sum(1).min())}-"
+        f"{int(first['points_mask'].sum(1).max())} real")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.time()
+    result, annos = eval_one_epoch(bundle, loader, dataset, cfg.CLASS_NAMES)
+    wall = time.time() - t0
+    n_fwd = len(loader)
+    launches = second_launches()
+    assert n_fwd >= 3, n_fwd
+    assert launches == {"K7": 7 * n_fwd, "K8": 12 * n_fwd, "K4": 2 * n_fwd, "K5": n_fwd,
+                        "K6": 0, "K9": 0, "K1-K3": 0}, launches
+    assert len(annos) == BATCH * n_fwd
+    for a in annos:
+        assert np.isfinite(a["boxes_lidar"]).all() and np.isfinite(a["score"]).all()
+    n_det = sum(len(a["score"]) for a in annos)
+    log(f"phase SECOND main path: eval_one_epoch over {n_fwd} batches of {BATCH} in "
+        f"{wall:.1f}s; launches {launches}; {n_det} detections, all finite; mAP "
+        f"{result['mAP']:.4f}, recall/0.3 {result['recall/0.3']:.4f}; eval sec/example "
+        f"{result['sec_per_example']:.4f}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    predict = predict_run(bundle, loader)
+    predict_rate = steady_rate(predict)
+    log(f"phase SECOND predict throughput: {predict_rate:.2f} scans/s steady state (batch "
+        f"{BATCH}, best of 3 x 10 steps)")
+    phase_profile(predict, "SECOND predict")
+    del bundle, predict, loader, dataset
+    torch.cuda.empty_cache()
+
+    np.random.seed(SEED)
+    tdataset, tloader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, batch_size=BATCH,
+                                            training=True)
+    tbatches = list(tloader)
+    tbundle = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), tdataset, device="cuda", seed=SEED)
+    state, _ = create_train_state(tbundle, cfg.OPTIMIZATION, SCHEDULE_STEPS)
+    step = make_train_step(tbundle)
+    log(f"SECOND training: {len(tbatches)} batches of {BATCH} augmented scans, "
+        f"{int(sum((b['gt_boxes'][..., -1] > 0).sum() for b in tbatches))} gt boxes")
+    rows = phase_second_kernels(state, step, tbatches[0])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.time()
+    losses = [float(step(state, tbatches[i % len(tbatches)])[1]["loss"])
+              for i in range(SECOND_TRAIN_STEPS)]
+    wall = time.time() - t0
+    tlaunches = second_launches()
+    n = SECOND_TRAIN_STEPS
+    assert tlaunches == {"K7": 18 * n, "K8": 12 * n, "K4": 2 * n, "K5": n, "K6": n, "K9": 0,
+                         "K1-K3": 0}, tlaunches
+    assert all(math.isfinite(v) for v in losses), losses
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"phase SECOND train main path: {n} make_train_step steps (numpy batches in) in "
+        f"{wall:.1f}s; launches {tlaunches}; losses {[round(v, 4) for v in losses]}; peak "
+        f"device memory {peak:.2f} GiB")
+    train = train_run(tbundle, state, step, tbatches)
+    train_rate = steady_rate(train)
+    log(f"phase SECOND train throughput: {train_rate:.2f} scans/s steady state (batch {BATCH}, "
+        f"best of 3 x 10 steps, loss read back every step)")
+    phase_profile(train, "SECOND train step")
+    return (rows, {key: launches[key] + tlaunches[key] for key in launches}, predict_rate,
+            train_rate, peak)
 
 
 def main():
@@ -1002,6 +1413,17 @@ def main():
     phase_profile(lambda: float(pbundle.predict(pdev)["pred_scores"][0, 0]), "PartA2 predict")
     for key in ("K9", "K6", "K4", "K5"):
         launches[key] = launches.get(key, 0) + plaunches[key]
+    del pbundle, pdev
+    torch.cuda.empty_cache()
+
+    # SECOND: the legacy conv contract (K7, K8), training and inference
+    torch.backends.cudnn.allow_tf32 = False
+    phase_second_tiny()
+    torch.backends.cudnn.allow_tf32 = True
+    srows, slaunches, second_scans, second_train, second_peak = phase_second(second_cfg())
+    rows.update(srows)
+    for key in ("K7", "K8", "K4", "K5", "K6"):
+        launches[key] = launches.get(key, 0) + slaunches[key]
 
     meta = {
         "K1": ("fused_bnconv9", "toda_tpu_torch/csrc/fused_conv.cu",
@@ -1016,6 +1438,10 @@ def main():
                "toda_tpu/ops/pallas_gather.py:1200"),
         "K6": ("gather_rows", "toda_tpu_torch/csrc/gather.cu",
                "toda_tpu/ops/pallas_gather.py:97"),
+        "K7": ("gather9_stacked_t", "toda_tpu_torch/csrc/gather.cu",
+               "toda_tpu/ops/pallas_gather.py:514"),
+        "K8": ("gather_rows_taps_t", "toda_tpu_torch/csrc/gather.cu",
+               "toda_tpu/ops/pallas_gather.py:354"),
         "K9": ("gather_rows_taps", "toda_tpu_torch/csrc/gather.cu",
                "toda_tpu/ops/pallas_gather.py:201"),
     }
@@ -1037,11 +1463,14 @@ def main():
         })
     log(f"(kernel times are summed over the kernel's recorded calls: K1 per CenterPoint-Res "
         f"forward of batch {BATCH}; K2, K3 per train step; K9 per PartA2 forward; K4, K5 one "
-        f"CenterPoint-Res and one PartA2 forward; K6 one train step and one PartA2 forward. "
-        f"Launches are summed over the counted runs: eval_one_epoch of each model, "
-        f"{TRAIN_STEPS} train steps. {scans_per_s:.2f} CenterPoint-Res predict scans/s, "
-        f"{train_scans:.2f} train scans/s, train peak memory {train_peak:.2f} GiB, "
-        f"{parta2_scans:.2f} PartA2 predict scans/s, on {card})")
+        f"CenterPoint-Res and one PartA2 forward; K6 one train step and one PartA2 forward; "
+        f"K7, K8 one SECOND train step. Launches are summed over the counted runs: "
+        f"eval_one_epoch of each model, {TRAIN_STEPS} CenterPoint-Res and "
+        f"{SECOND_TRAIN_STEPS} SECOND train steps. {scans_per_s:.2f} CenterPoint-Res predict "
+        f"scans/s, {train_scans:.2f} train scans/s, train peak memory {train_peak:.2f} GiB, "
+        f"{parta2_scans:.2f} PartA2 predict scans/s, {second_scans:.2f} SECOND predict "
+        f"scans/s, {second_train:.2f} SECOND train scans/s, SECOND train peak memory "
+        f"{second_peak:.2f} GiB, on {card})")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -193,9 +193,10 @@ def test_anchors_equal_jax():
     cfg = _cfg()
     gen_cfg = cfg.MODEL.DENSE_HEAD.ANCHOR_GENERATOR_CONFIG
     args = ([-20.0, -20.0, -3.0, 20.0, 20.0, 1.0], (128, 128, 16))
-    anchors, per_loc = AnchorGenerator(gen_cfg, *args).generate()
+    anchors, cls, matched, unmatched, per_loc = AnchorGenerator(gen_cfg, *args).generate()
     want = JAnchorGenerator(gen_cfg, *args).generate()
-    np.testing.assert_array_equal(anchors, np.asarray(want[0]))
+    for got, ref in zip((anchors, cls, matched, unmatched), want):
+        np.testing.assert_array_equal(got, np.asarray(ref))
     assert per_loc == want[5] == 4 and anchors.shape == (16 * 16 * 4, 7)
 
 

@@ -1,5 +1,6 @@
-// Row scatter-add (K4), voxelizer unpack (K5), row gather (K6) and multi-tap
-// row gather (K9) for Hopper (sm_90a).
+// Row scatter-add (K4), voxelizer unpack (K5), row gather (K6), multi-tap
+// row gather (K9) and the two column gathers of the transposed layout (K7,
+// K8) for Hopper (sm_90a).
 //
 // Built by toda_tpu_torch/ops/_build.py into a shared library with a plain C
 // interface; toda_tpu_torch/ops/gather.py binds it with ctypes. Every launcher
@@ -46,6 +47,26 @@
 // contiguous and neighbouring threads write neighbouring chunks. No window,
 // no one-hot product, no lane padding. Bound: bytes (the gathered rows read
 // once, the output written once).
+//
+// K8 gather_rows_taps_t replaces pallas_gather.py _gather_taps_t_kernel
+// (public gather_rows_taps_t), and K7 gather9_stacked_t replaces
+// _gather9_stacked_kernel (public gather9_stacked_t): the column gathers of
+// the transposed-layout sparse conv, whose activations are (W, N) tables with
+// one column per pillar. out[t][w][m] = table[w][idx[m, t]], a zero column
+// where idx is -1. K8 writes T <= 9 taps as (T, W, M); K7 writes all 9 taps
+// as (9W, M) rows, either [t][W] or, with a chunk, [W / chunk][t][chunk]
+// (row j*9*chunk + t*chunk + r holds tap t of table row j*chunk + r), and
+// copies the table's own column m for its identity tap when M == N, whatever
+// idx holds there (as the TPU kernel does). The TPU kernels DMA per-dy-group
+// span windows of columns and select with one-hot MXU products in 128-lane
+// tiles, with a host-side overflow fallback. Here a block owns 256
+// consecutive output columns of one tap and a slice of the table's rows: each
+// thread loads its column's index once, then walks the rows, reading
+// table[w][j] and writing out[row(t, w)][m]. Stores are coalesced along m;
+// the per-tap indices are monotone over the key-sorted pillars, so a warp's
+// reads of one row fall in a few neighbouring sectors. One kernel serves
+// both (kStacked selects the row order). Bound: bytes (the gathered columns
+// read once, the output written once).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -129,7 +150,60 @@ __global__ void gather_rows_taps_kernel(const V* __restrict__ table,
   out[t] = j >= 0 ? table[(int64_t)j * row_words + k] : V();
 }
 
+// Column gather of the transposed layout (K7 when kStacked, else K8). Block
+// (x, t, y): output columns [256x, 256x + 256) of tap t, table rows [y*rows,
+// (y+1)*rows). table (w, n); idx (m, ntap); out rows as described above.
+template <typename V, bool kStacked>
+__global__ void gather_cols_kernel(const V* __restrict__ table,
+                                   const int32_t* __restrict__ idx,
+                                   V* __restrict__ out, int64_t n, int64_t m,
+                                   int ntap, int w, int rows, int chunk,
+                                   int identity) {
+  const int64_t col = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (col >= m) return;
+  const int t = blockIdx.y;
+  const int w0 = blockIdx.z * rows;
+  const int w1 = min(w, w0 + rows);
+  int64_t src;  // the table column this output column copies, -1 for zeros
+  if (t == identity) {
+    src = col;
+  } else {
+    src = idx[col * ntap + t];
+  }
+  for (int r = w0; r < w1; ++r) {
+    int64_t orow;
+    if (kStacked && chunk > 0) {
+      const int j = r / chunk;
+      orow = (int64_t)j * 9 * chunk + (int64_t)t * chunk + (r - j * chunk);
+    } else {
+      orow = (int64_t)t * w + r;
+    }
+    out[orow * m + col] = src >= 0 ? table[(int64_t)r * n + src] : V();
+  }
+}
+
 constexpr int kThreads = 256;
+constexpr int kColRows = 32;  // table rows per block of the column gathers
+
+template <bool kStacked>
+int launch_gather_cols(const void* table, const int32_t* idx, void* out,
+                       int64_t n, int64_t m, int ntap, int w, int elem_bytes,
+                       int chunk, int identity, cudaStream_t stream) {
+  if (m > 0 && w > 0) {
+    const dim3 grid((unsigned)((m + kThreads - 1) / kThreads), (unsigned)ntap,
+                    (unsigned)((w + kColRows - 1) / kColRows));
+    if (elem_bytes == 4) {
+      gather_cols_kernel<uint32_t, kStacked><<<grid, kThreads, 0, stream>>>(
+          (const uint32_t*)table, idx, (uint32_t*)out, n, m, ntap, w, kColRows,
+          chunk, identity);
+    } else {
+      gather_cols_kernel<uint16_t, kStacked><<<grid, kThreads, 0, stream>>>(
+          (const uint16_t*)table, idx, (uint16_t*)out, n, m, ntap, w, kColRows,
+          chunk, identity);
+    }
+  }
+  return (int)cudaGetLastError();
+}
 
 inline unsigned blocks_for(int64_t n) {
   return (unsigned)((n + kThreads - 1) / kThreads);
@@ -212,6 +286,25 @@ int toda_gather_rows_taps(const void* table, const int32_t* idx, void* out, int6
     }
   }
   return (int)cudaGetLastError();
+}
+
+// K8. table: (w, n) of elem_bytes (2 or 4) elements; idx: (m, ntap);
+// out: (ntap, w, m).
+int toda_gather_rows_taps_t(const void* table, const int32_t* idx, void* out,
+                            int64_t n, int64_t m, int ntap, int w,
+                            int elem_bytes, cudaStream_t stream) {
+  return launch_gather_cols<false>(table, idx, out, n, m, ntap, w, elem_bytes,
+                                   0, -1, stream);
+}
+
+// K7. table: (w, n); idx: (m, 9); out: (9w, m) in [t][w] order (chunk 0) or
+// [w / chunk][t][chunk] order; identity: the tap that copies column m of the
+// table (-1 for none; the caller passes it only when m == n).
+int toda_gather9_stacked_t(const void* table, const int32_t* idx, void* out,
+                           int64_t n, int64_t m, int w, int elem_bytes,
+                           int chunk, int identity, cudaStream_t stream) {
+  return launch_gather_cols<true>(table, idx, out, n, m, 9, w, elem_bytes,
+                                  chunk, identity, stream);
 }
 
 }  // extern "C"

@@ -1,7 +1,9 @@
 """World-level augmentation primitives (host numpy) with record/replay params.
 
-The port's own copy of the three ops of ``toda_tpu/datasets/augmentor/
-augmentor_utils.py`` that the synthetic training config runs. Each takes an
+The port's own copy of the four ops of ``toda_tpu/datasets/augmentor/
+augmentor_utils.py`` that the synthetic and Waymo training configs run
+(without gt_sampling): the flips along x and y, the rotation and the
+scaling. Each takes an
 optional ``params``: ``None`` draws fresh randomness from the global numpy
 generator (as the JAX package does, so both see the same draws under the same
 ``np.random.seed``) and returns the params used; a value replays them.
@@ -23,6 +25,21 @@ def random_flip_along_x(gt_boxes, points, params=None):
         points[:, 1] = -points[:, 1]
         if gt_boxes.shape[1] > 7:
             gt_boxes[:, 8] = -gt_boxes[:, 8]  # velocity_y
+    return gt_boxes, points, enable
+
+
+def random_flip_along_y(gt_boxes, points, params=None):
+    """Flip x with probability 0.5 (:30-41). Returns (boxes, points, enable
+    flag)."""
+    enable = np.random.choice([False, True]) if params is None else bool(params)
+    if enable:
+        gt_boxes = gt_boxes.copy()
+        points = points.copy()
+        gt_boxes[:, 0] = -gt_boxes[:, 0]
+        gt_boxes[:, 6] = -(gt_boxes[:, 6] + np.pi)
+        points[:, 0] = -points[:, 0]
+        if gt_boxes.shape[1] > 7:
+            gt_boxes[:, 7] = -gt_boxes[:, 7]  # velocity_x
     return gt_boxes, points, enable
 
 

@@ -1,8 +1,9 @@
 """Config-driven augmentation queue with record/replay (host numpy).
 
 The port's own copy of ``toda_tpu/datasets/augmentor/data_augmentor.py`` cut
-to the ops the synthetic training config runs (``random_world_flip``,
-``random_world_rotation``, ``random_world_scaling``). Each op appends
+to the ops the synthetic and Waymo training configs run without gt_sampling
+(``random_world_flip`` along x and y, ``random_world_rotation``,
+``random_world_scaling``). Each op appends
 ``(name, params)`` to ``data_dict['augmentation_params']``; a
 ``data_dict['replay_params']`` list replays a recorded sequence instead of
 drawing.
@@ -55,11 +56,10 @@ class DataAugmentor:
         gt_boxes = data_dict.get("gt_boxes", np.zeros((0, 7), np.float32))
         points = data_dict["points"]
         for cur_axis in config.ALONG_AXIS_LIST:
-            if cur_axis != "x":
-                raise NotImplementedError(f"random_world_flip along {cur_axis} is not ported")
             name = f"random_world_flip_{cur_axis}"
-            gt_boxes, points, used = augmentor_utils.random_flip_along_x(
-                gt_boxes, points, params=self._replay_param(data_dict, name))
+            fn = getattr(augmentor_utils, f"random_flip_along_{cur_axis}")
+            gt_boxes, points, used = fn(gt_boxes, points,
+                                        params=self._replay_param(data_dict, name))
             self._record(data_dict, name, used)
         data_dict["gt_boxes"] = gt_boxes
         data_dict["points"] = points

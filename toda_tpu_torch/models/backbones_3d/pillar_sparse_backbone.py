@@ -1,18 +1,30 @@
-"""BEV-sparse / z-dense 3D backbone layers: the fused residual backbone
-(CenterPoint-Res) and the row-major conv layers of UNetV2 (PartA2).
+"""BEV-sparse / z-dense 3D backbones: ``PillarBackBone8x`` (SECOND) and
+``PillarResBackBone8x`` (CenterPoint-Res) on either conv contract, and the
+row-major conv layers of UNetV2 (PartA2).
 
 Counterpart of ``toda_tpu/models/backbones_3d/pillar_sparse_backbone.py``
-(``_PillarBackboneBase`` :338, ``PillarResBackBone8x`` :500,
-``PillarConvLayer`` / ``PillarSubMBlock`` :64-125) on the port's row-major
-activations (B*P, nz, C). Layers chain their RAW conv outputs with a
-pending BatchNorm affine (scale, shift, relu): the next fused conv (kernel K1,
-``ops/fused_conv.py``) applies it to the rows it gathers, and a residual
-block's join applies it once. In training mode the affine comes from the
-batch statistics and gradients flow back through the fused conv's backward
-kernels (dx and dW) into the statistics. The row-major layers
-(``PillarConvLayer``, ``PillarSubMBlock``) run ``pillar_conv3d`` (K9 gathers
-and a plain z product) and apply their BatchNorm at once, as JAX's legacy
-layers do. Parameter and buffer names mirror the flax tree
+(``_PillarBackboneBase`` :338-494, ``PillarBackBone8x`` / ``PillarResBackBone8x``
+:497-502, ``PillarConvLayerT`` / ``PillarSubMBlockT`` :187-335,
+``PillarConvLayer`` / ``PillarSubMBlock`` :64-125). ``FUSED_CONV`` picks the
+contract of the 8x backbones, as in JAX:
+
+  * fused (the default): row-major activations (B*P, nz, C). Layers chain
+    their RAW conv outputs with a pending BatchNorm affine (scale, shift,
+    relu): the next fused conv (kernel K1, ``ops/fused_conv.py``) applies it
+    to the rows it gathers, and a residual block's join applies it once. In
+    training mode the affine comes from the batch statistics and gradients
+    flow back through the fused conv's backward kernels (dx and dW) into the
+    statistics.
+  * legacy (``FUSED_CONV: False``): the transposed layout (nz*C, B*P), one
+    column per pillar, as JAX keeps it. Each layer runs ``pillar_conv3d_t``
+    (kernels K7 and K8, ``ops/pillar_sparse.py``), then its BatchNorm
+    applied, relu and the mask; the voxelizer's rows are transposed once on
+    the way in and the last stage once on the way out.
+
+The row-major layers (``PillarConvLayer``, ``PillarSubMBlock``) run
+``pillar_conv3d`` (K9 gathers and a plain z product) and apply their
+BatchNorm at once, as JAX's legacy layers do. Parameter and buffer names
+mirror the flax tree, the same on both contracts
 (``weights.state_dict_from_flax``).
 """
 
@@ -28,6 +40,7 @@ from ...ops.pillar_sparse import (
     bev_neighbor_idx_sorted_batched,
     fold_idx,
     pillar_conv3d,
+    pillar_conv3d_t,
     pillars_to_dense_batched,
     voxelize_pillars_batched,
 )
@@ -90,11 +103,13 @@ class PillarSubMBlock(nn.Module):
 
 
 class MaskedBatchNormT(nn.Module):
-    """BatchNorm over valid pillars x z (``MaskedBatchNormT`` :128) as one
-    per-channel affine for the next layer to apply. Training: f32 batch
-    statistics of the valid rows (biased variance E[x^2] - mean^2, floored at
-    0), running statistics updated with flax momentum 0.99; eval: the running
-    statistics."""
+    """BatchNorm over valid pillars x z (``MaskedBatchNormT`` :128-163).
+    Training: f32 batch statistics of the valid rows (biased variance
+    E[x^2] - mean^2, floored at 0), running statistics updated with flax
+    momentum 0.99; eval: the running statistics. ``affine`` gives the
+    per-channel (scale, shift) for the fused contract's next layer to apply;
+    ``forward`` applies it to a transposed (nz, C, M) tensor, as the legacy
+    contract does."""
 
     def __init__(self, num_features, eps=1e-3):
         super().__init__()
@@ -105,25 +120,34 @@ class MaskedBatchNormT(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
         self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
 
-    def affine(self, x, maskf):
-        """(scale, shift) f32 with y = x * scale + shift, for x (M, nz, C)
-        and its row mask maskf (M,). In training they carry gradients back
-        to x through the batch statistics."""
+    def affine(self, x, maskf, transposed=False):
+        """(scale, shift) f32 with y = x * scale + shift, for x (M, nz, C),
+        or (nz, C, M) when ``transposed``, and its pillar mask maskf (M,).
+        In training they carry gradients back to x through the batch
+        statistics."""
         if not self.training:
             inv = torch.rsqrt(self.running_var + self.eps) * self.weight
             return (inv.float().contiguous(),
                     (self.bias - self.running_mean * inv).float().contiguous())
-        n = torch.clamp(maskf.sum(dtype=torch.float32) * x.shape[1], min=1.0)
-        xf = torch.where(maskf[:, None, None], x, torch.zeros((), dtype=x.dtype,
-                                                              device=x.device)).float()
-        mean = xf.sum((0, 1)) / n
-        var = torch.clamp((xf * xf).sum((0, 1)) / n - mean * mean, min=0.0)
+        nz, dims = (x.shape[0], (0, 2)) if transposed else (x.shape[1], (0, 1))
+        valid = maskf[None, None, :] if transposed else maskf[:, None, None]
+        n = torch.clamp(maskf.sum(dtype=torch.float32) * nz, min=1.0)
+        xf = torch.where(valid, x, torch.zeros((), dtype=x.dtype, device=x.device)).float()
+        mean = xf.sum(dims) / n
+        var = torch.clamp((xf * xf).sum(dims) / n - mean * mean, min=0.0)
         with torch.no_grad():
             m = FLAX_MOMENTUM
             self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
             self.running_var.copy_(m * self.running_var + (1 - m) * var)
         inv = torch.rsqrt(var + self.eps) * self.weight
         return inv.contiguous(), (self.bias - mean * inv).contiguous()
+
+    def forward(self, x, maskf):
+        """x (nz, C, M) normalised in x's dtype (the shift rounded to it
+        first), zero on invalid columns."""
+        sc, sh = self.affine(x, maskf, transposed=True)
+        y = x * sc.to(x.dtype)[:, None] + sh.to(x.dtype)[:, None]
+        return torch.where(maskf, y, torch.zeros((), dtype=y.dtype, device=y.device))
 
 
 def identity_affine(c, device):
@@ -142,9 +166,9 @@ def apply_affine(x, affine, maskf):
 
 
 class PillarConvLayerT(nn.Module):
-    """One fused conv (``PillarConvLayerT`` :187, fused contract): takes the
-    raw input and its pending affine, returns the raw output and the affine
-    of its own BatchNorm."""
+    """One 3x3x3 conv + masked BatchNorm (``PillarConvLayerT`` :187-257) on
+    either contract. A stride-1 layer is a submanifold conv whose centre
+    tap (4) is the pillar itself."""
 
     def __init__(self, in_channels, out_channels, z_stride=1, use_relu=True):
         super().__init__()
@@ -153,43 +177,87 @@ class PillarConvLayerT(nn.Module):
         self.kernel = he_kernel(in_channels, out_channels)
         self.bn = MaskedBatchNormT(out_channels)
 
-    def forward(self, x, idxf, invf, out_maskf, affine):
-        out = fused_bnconv9_ad(x, affine[0], affine[1], self.kernel.to(x.dtype).contiguous(),
-                               idxf, invf, self.z_stride, affine[2])
-        sc, sh = self.bn.affine(out, out_maskf)
-        return out, (sc, sh, self.use_relu)
+    def forward(self, x, idxf, invf, out_maskf, affine=None):
+        """Fused contract (``affine`` = (scale, shift, act), the input's
+        pending normalisation): x (M_in, nz, C) raw; returns the raw output
+        and the affine of this layer's BatchNorm. Legacy contract (``affine``
+        None): x (nz*C, M_in) applied; returns (nz_out*Cout, M_out) after
+        BatchNorm, relu and the mask."""
+        if affine is not None:
+            out = fused_bnconv9_ad(x, affine[0], affine[1],
+                                   self.kernel.to(x.dtype).contiguous(), idxf, invf,
+                                   self.z_stride, affine[2])
+            sc, sh = self.bn.affine(out, out_maskf)
+            return out, (sc, sh, self.use_relu)
+        c, cout = self.kernel.shape[3:]
+        nz = x.shape[0] // c
+        out = pillar_conv3d_t(x, idxf, self.kernel.to(x.dtype), out_maskf, nz, self.z_stride,
+                              4 if self.z_stride == 1 else None, invf)
+        y = self.bn(out.view(-1, cout, out.shape[-1]), out_maskf)
+        if self.use_relu:
+            y = torch.relu(y)  # the mask keeps: relu(0) is 0
+        return y.view(-1, y.shape[-1])
 
 
-class PillarResBlock(nn.Module):
-    """Residual submanifold block (``PillarSubMBlockT`` :284-311): two fused
-    convs, identity (projected when the width changes), one join pass."""
+class PillarSubMBlockT(nn.Module):
+    """Submanifold block (``PillarSubMBlockT`` :260-335): ``num_layers``
+    convs, or with ``residual`` two convs and an identity join (projected
+    when the width changes), on either contract."""
 
-    def __init__(self, in_channels, out_channels):
+    def __init__(self, in_channels, out_channels, residual=False, num_layers=2):
         super().__init__()
-        self.conv1 = PillarConvLayerT(in_channels, out_channels)
-        self.conv2 = PillarConvLayerT(out_channels, out_channels, use_relu=False)
-        if in_channels != out_channels:
-            self.proj_kernel = nn.Parameter(torch.empty(in_channels, out_channels))
-            nn.init.normal_(self.proj_kernel, std=in_channels ** -0.5)
-        else:
+        self.residual = residual
+        if residual:
+            self.conv1 = PillarConvLayerT(in_channels, out_channels)
+            self.conv2 = PillarConvLayerT(out_channels, out_channels, use_relu=False)
             self.proj_kernel = None
+            if in_channels != out_channels:
+                self.proj_kernel = nn.Parameter(torch.empty(in_channels, out_channels))
+                nn.init.normal_(self.proj_kernel, std=in_channels ** -0.5)
+        else:
+            self.num_layers = num_layers
+            for i in range(num_layers):
+                self.add_module(f"subm{i}", PillarConvLayerT(
+                    in_channels if i == 0 else out_channels, out_channels))
 
-    def forward(self, x, idxf, invf, maskf, affine):
-        raw1, aff1 = self.conv1(x, idxf, invf, maskf, affine)
-        raw2, aff2 = self.conv2(raw1, idxf, invf, maskf, aff1)
-        identity = apply_affine(x, affine, maskf)
+    def forward(self, x, idxf, invf, maskf, affine=None):
+        """As ``PillarConvLayerT.forward``: with ``affine``, raw rows in and
+        (raw rows, affine) out; the residual join returns applied rows with
+        an identity affine. Without, applied (nz*C, M) columns in and out."""
+        if not self.residual:
+            for i in range(self.num_layers):
+                layer = getattr(self, f"subm{i}")
+                if affine is None:
+                    x = layer(x, idxf, invf, maskf)
+                else:
+                    x, affine = layer(x, idxf, invf, maskf, affine)
+            return x if affine is None else (x, affine)
+        if affine is not None:
+            raw1, aff1 = self.conv1(x, idxf, invf, maskf, affine)
+            raw2, aff2 = self.conv2(raw1, idxf, invf, maskf, aff1)
+            identity = apply_affine(x, affine, maskf)
+            if self.proj_kernel is not None:
+                identity = identity @ self.proj_kernel.to(identity.dtype)
+            y2 = apply_affine(raw2, aff2, maskf)
+            out = torch.where(maskf[:, None, None], torch.relu(y2 + identity),
+                              torch.zeros_like(y2))
+            return out, identity_affine(out.shape[-1], out.device)
+        y2 = self.conv2(self.conv1(x, idxf, invf, maskf), idxf, invf, maskf)
+        identity = x
         if self.proj_kernel is not None:
-            identity = identity @ self.proj_kernel.to(identity.dtype)
-        y2 = apply_affine(raw2, aff2, maskf)
-        out = torch.where(maskf[:, None, None], torch.relu(y2 + identity),
-                          torch.zeros_like(y2))
-        return out, identity_affine(out.shape[-1], out.device)
+            cin, cout = self.proj_kernel.shape
+            id3 = x.view(-1, cin, x.shape[-1])
+            identity = torch.matmul(self.proj_kernel.t().to(x.dtype), id3).view(-1, x.shape[-1])
+        return torch.where(maskf, torch.relu(y2 + identity), torch.zeros_like(y2))
 
 
-class PillarResBackBone8x(nn.Module):
+class _PillarBackboneBase(nn.Module):
     """Voxelize points, then stem + three stride-2 stages (channels
     CHANNELS, 8x BEV stride, z halved per stage), then scatter the last
-    stage to a dense (B, nz, ny, nx, C) tensor."""
+    stage to a dense (B, nz, ny, nx, C) tensor (``_PillarBackboneBase``
+    :338-494). ``FUSED_CONV`` (default True) picks the conv contract."""
+
+    RESIDUAL = False
 
     def __init__(self, model_cfg, input_channels, grid_size, voxel_size, point_cloud_range):
         super().__init__()
@@ -201,15 +269,17 @@ class PillarResBackBone8x(nn.Module):
         caps = model_cfg.get("MAX_PILLARS_PER_STAGE", None)
         self.caps = [int(v) for v in caps] if caps is not None else [p0, p0 // 2, p0 // 4, p0 // 8]
         self.dtype = torch.bfloat16 if model_cfg.get("BF16", True) else torch.float32
+        self.fused = bool(model_cfg.get("FUSED_CONV", True))
         # the voxelizer pads the point features to a multiple of 8 channels
         cin = -(-input_channels // 8) * 8
-        self.stage1 = PillarResBlock(cin, chans[0])
+        self.stage1 = PillarSubMBlockT(cin, chans[0], self.RESIDUAL)
         nz = self.grid_size[2]
         for si, ch in enumerate(chans[1:], start=2):
             self.add_module(f"down{si}", PillarConvLayerT(chans[si - 2], ch, z_stride=2))
-            self.add_module(f"stage{si}", PillarResBlock(ch, ch))
+            self.add_module(f"stage{si}", PillarSubMBlockT(ch, ch, self.RESIDUAL))
             nz = out_depth(nz, 2)
         self.num_stages = len(chans)
+        self.out_channels = chans[-1]
         self.num_bev_features = nz * chans[-1]
 
     def forward(self, batch_dict):
@@ -227,7 +297,13 @@ class PillarResBackBone8x(nn.Module):
                                                         bev_shape, 1), p)
         # submanifold: the inverse of tap t is column 8 - t of the same table
         invf = idxf.flip(1).contiguous() if grad else None
-        x, aff = self.stage1(x, idxf, invf, maskf, identity_affine(x.shape[-1], x.device))
+        if self.fused:
+            aff = identity_affine(x.shape[-1], x.device)
+            x, aff = self.stage1(x, idxf, invf, maskf, aff)
+        else:
+            c = x.shape[-1]
+            # (B*P, nz, C) rows -> (nz*C, B*P) columns, the legacy contract's layout
+            x = self.stage1(x.permute(1, 2, 0).reshape(nz * c, -1), idxf, invf, maskf)
         for si in range(2, self.num_stages + 1):
             p_in, p_out = coords.shape[1], self.caps[si - 1]
             new_coords, new_mask = bev_downsample_sites(coords, mask, 2, p_out, bev_shape)
@@ -238,15 +314,35 @@ class PillarResBackBone8x(nn.Module):
                            p_out) if grad else None
             coords, mask = new_coords, new_mask
             maskf = mask.reshape(-1)
-            x, aff = getattr(self, f"down{si}")(x, fold_idx(nbr, p_in), inv, maskf, aff)
+            down, stage = getattr(self, f"down{si}"), getattr(self, f"stage{si}")
             bev_shape = coarse
             idxf = fold_idx(bev_neighbor_idx_sorted_batched(coords, mask, coords, mask,
                                                             bev_shape, 1), p_out)
             invf = idxf.flip(1).contiguous() if grad else None
-            x, aff = getattr(self, f"stage{si}")(x, idxf, invf, maskf, aff)
-        x = apply_affine(x, aff, maskf)
+            if self.fused:
+                x, aff = down(x, fold_idx(nbr, p_in), inv, maskf, aff)
+                x, aff = stage(x, idxf, invf, maskf, aff)
+            else:
+                x = down(x, fold_idx(nbr, p_in), inv, maskf)
+                x = stage(x, idxf, invf, maskf)
+        if self.fused:
+            x = apply_affine(x, aff, maskf)
+        else:  # (nz*C, B*P) columns -> (B*P, nz, C) rows
+            x = x.view(-1, self.out_channels, x.shape[-1]).permute(2, 0, 1)
         cur_nz, c = x.shape[1], x.shape[2]
         dense = pillars_to_dense_batched(x.reshape(bt, -1, cur_nz, c), coords, mask, bev_shape)
         # (B, D, H, W, C), the layout HeightCompression collapses
         batch_dict["encoded_spconv_tensor"] = dense.permute(0, 3, 1, 2, 4)
         return batch_dict
+
+
+class PillarBackBone8x(_PillarBackboneBase):
+    """SECOND's backbone: plain submanifold blocks of two convs."""
+
+    RESIDUAL = False
+
+
+class PillarResBackBone8x(_PillarBackboneBase):
+    """CenterPoint-Res's backbone: residual submanifold blocks."""
+
+    RESIDUAL = True

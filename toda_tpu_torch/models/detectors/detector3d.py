@@ -4,11 +4,14 @@ Counterpart of ``toda_tpu/models/detectors/detector3d.py``: ``DatasetMeta``;
 ``Detector3D``, built from the config's module names (the backbone owns its
 voxelization); the first-stage proposals of a two-stage detector
 (``_make_proposals`` :295-341); ``DetectorBundle`` with the anchors and the
-box coders (:443-470, :521-525), ``loss`` / ``head_loss`` (the CenterHead
-branch, :540-567, :616-644) and ``predict`` / ``post_processing`` (the
-two-stage and CenterHead branches, :661-743). Two families are ported:
-CenterPoint-Res (PillarResBackBone8x + CenterHead) and PartA2
-(UNetV2 + AnchorHeadSingle + PointHeadIntraPart + PartA2FCHead, inference).
+box coders and the anchor target assigner (:443-470, :521-525),
+``loss`` / ``head_loss`` (the AnchorHeadSingle and CenterHead branches,
+:540-567, :616-644), ``decode_topk`` (:646-659) and ``predict`` /
+``post_processing`` (the two-stage, anchor and CenterHead branches,
+:661-743). Three detectors are ported: CenterPoint(-Res)
+(PillarResBackBone8x + CenterHead), SECOND (PillarBackBone8x +
+AnchorHeadSingle), both with training, and PartA2 (UNetV2 + AnchorHeadSingle
++ PointHeadIntraPart + PartA2FCHead, inference).
 """
 
 from dataclasses import dataclass
@@ -16,24 +19,31 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
-from ...ops.nms import class_agnostic_nms
+from ...ops.nms import class_agnostic_nms, top_k
 from ...utils.box_coder_utils import ResidualCoder
 from ...weights import init_like_flax_
 from ..backbones_2d.base_bev_backbone import BaseBEVBackbone
 from ..backbones_2d.map_to_bev.height_compression import HeightCompression
-from ..backbones_3d.pillar_sparse_backbone import PillarResBackBone8x
+from ..backbones_3d.pillar_sparse_backbone import PillarBackBone8x, PillarResBackBone8x
 from ..backbones_3d.pillar_unet import UNetV2
-from ..dense_heads.anchor_head_single import AnchorHeadSingle, generate_predicted_boxes
+from ..dense_heads.anchor_head_single import (
+    AnchorHeadSingle,
+    anchor_head_loss,
+    generate_predicted_boxes,
+)
 from ..dense_heads.center_head import CenterHead
 from ..dense_heads.point_head_intra_part import PointHeadIntraPart
 from ..dense_heads.target_assigner.anchor_generator import AnchorGenerator
+from ..dense_heads.target_assigner.axis_aligned_target_assigner import AxisAlignedTargetAssigner
 from ..roi_heads.parta2_head import PartA2FCHead
 from ..roi_heads.roi_utils import generate_predicted_boxes_roi, proposal_layer
 
-BACKBONES_3D = {"PillarResBackBone8x": PillarResBackBone8x, "UNetV2": UNetV2}
-# the ported families: dense head -> (point head, roi head) it runs with
-FAMILIES = {"CenterHead": (None, None),
-            "AnchorHeadSingle": ("PointHeadIntraPart", "PartA2FCHead")}
+BACKBONES_3D = {"PillarBackBone8x": PillarBackBone8x,
+                "PillarResBackBone8x": PillarResBackBone8x, "UNetV2": UNetV2}
+# the ported detectors (MODEL.NAME): (dense head, point head, roi head)
+DETECTORS = {"CenterPoint": ("CenterHead", None, None),
+             "SECONDNet": ("AnchorHeadSingle", None, None),
+             "PartA2Net": ("AnchorHeadSingle", "PointHeadIntraPart", "PartA2FCHead")}
 
 
 @dataclass(frozen=True)
@@ -79,12 +89,17 @@ class Detector3D(nn.Module):
                  box_coder=None):
         super().__init__()
         self.model_cfg = model_cfg
+        name = model_cfg.get("NAME")
+        if name not in DETECTORS:
+            raise NotImplementedError(f"detector {name} is not ported to the PyTorch package "
+                                      f"yet (ported: {', '.join(DETECTORS)})")
         bb3d = _require(model_cfg, "BACKBONE_3D", BACKBONES_3D)
         _require(model_cfg, "MAP_TO_BEV", ("HeightCompression",))
         _require(model_cfg, "BACKBONE_2D", ("BaseBEVBackbone",))
-        head = _require(model_cfg, "DENSE_HEAD", FAMILIES)
-        _require(model_cfg, "POINT_HEAD", (FAMILIES[head][0],))
-        _require(model_cfg, "ROI_HEAD", (FAMILIES[head][1],))
+        head, point_head, roi_head = DETECTORS[name]
+        _require(model_cfg, "DENSE_HEAD", (head,))
+        _require(model_cfg, "POINT_HEAD", (point_head,))
+        _require(model_cfg, "ROI_HEAD", (roi_head,))
         self.backbone_3d = BACKBONES_3D[bb3d](
             model_cfg["BACKBONE_3D"], meta.num_point_features, meta.grid_size,
             meta.voxel_size, meta.point_cloud_range)
@@ -102,6 +117,7 @@ class Detector3D(nn.Module):
             self.dense_head = AnchorHeadSingle(model_cfg["DENSE_HEAD"], bev_ch, num_class,
                                                num_anchors_per_location, box_coder.code_size)
             self.register_buffer("anchors", torch.as_tensor(anchors), persistent=False)
+        if roi_head is not None:
             point_ch = self.backbone_3d.num_point_features
             self.point_head = PointHeadIntraPart(model_cfg["POINT_HEAD"], point_ch, num_class)
             self.roi_head = PartA2FCHead(model_cfg["ROI_HEAD"], point_ch, num_class,
@@ -146,7 +162,7 @@ class DetectorBundle:
         if self.dense_head_name == "AnchorHeadSingle":
             gen = AnchorGenerator(model_cfg["DENSE_HEAD"]["ANCHOR_GENERATOR_CONFIG"],
                                   self.meta.point_cloud_range, self.meta.grid_size)
-            anchors, num_anchors_per_loc = gen.generate()
+            anchors, *matching, num_anchors_per_loc = gen.generate()
             self.box_coder = ResidualCoder()
         roi_cfg = model_cfg.get("ROI_HEAD") or {}
         self.roi_box_coder = ResidualCoder() if roi_cfg.get("TARGET_CONFIG") else None
@@ -154,6 +170,11 @@ class DetectorBundle:
                             self.box_coder)
         self.module = init_like_flax_(module, seed).to(device).eval()
         self.anchors = getattr(self.module, "anchors", None)
+        self.assigner = None
+        if self.anchors is not None:
+            self.assigner = AxisAlignedTargetAssigner(
+                self.anchors, *(torch.as_tensor(v, device=device) for v in matching),
+                self.box_coder)
         self.post_cfg = model_cfg.get("POST_PROCESSING", {})
 
     def to_device(self, batch):
@@ -165,10 +186,15 @@ class DetectorBundle:
                 for k, dt in dtypes.items() if k in batch}
 
     def head_loss(self, out, gt_boxes):
-        """(total, tb) detection loss of the forward outputs (CenterHead)."""
-        if self.dense_head_name != "CenterHead":
-            raise NotImplementedError(f"training of {self.dense_head_name} is not ported yet")
-        return self.module.dense_head.get_loss(out, gt_boxes)
+        """(total, tb) detection loss of the forward outputs: the
+        CenterHead's, or the anchor head's on the assigner's targets
+        (single-stage detectors)."""
+        if hasattr(self.module, "roi_head"):
+            raise NotImplementedError("training of the two-stage detectors is not ported yet")
+        if self.dense_head_name == "CenterHead":
+            return self.module.dense_head.get_loss(out, gt_boxes)
+        return anchor_head_loss(out, self.assigner.assign(gt_boxes),
+                                self.model_cfg["DENSE_HEAD"], self.num_class)
 
     def loss(self, batch_dict):
         """Forward in training mode (batch statistics; BatchNorm running
@@ -217,14 +243,38 @@ class DetectorBundle:
 
     def decode(self, out):
         """Boxes, scores and labels before the final NMS: the RoI head's
-        refined boxes scored by its cls branch (two-stage), or the
-        CenterHead's (B, MAX_OBJ_PER_SAMPLE) top-K."""
+        refined boxes scored by its cls branch (two-stage), every anchor's
+        decoded box with its best class (anchor head), or the CenterHead's
+        (B, MAX_OBJ_PER_SAMPLE) top-K."""
         if self.roi_box_coder is not None and "rcnn_reg" in out:
             rcnn_cls, boxes = generate_predicted_boxes_roi(
                 out["rois"], out["rcnn_cls"], out["rcnn_reg"], self.roi_box_coder)
             return boxes, torch.sigmoid(rcnn_cls[..., 0]) * out["roi_mask"], out["roi_labels"]
+        if self.dense_head_name == "AnchorHeadSingle":
+            return self._anchor_decode(out)
         max_obj = int(self.post_cfg.get("MAX_OBJ_PER_SAMPLE", 128))
         return self.module.dense_head.generate_predicted_boxes(out, max_obj=max_obj)
+
+    def _anchor_decode(self, out):
+        """Every anchor's decoded box, its best class score and label."""
+        cls_logits, boxes = generate_predicted_boxes(
+            out, self.anchors, self.model_cfg["DENSE_HEAD"], self.box_coder)
+        scores, labels = torch.sigmoid(cls_logits).max(dim=-1)
+        return boxes, scores, labels + 1
+
+    def decode_topk(self, out, k=32):
+        """(B, k) best decoded boxes (7 values) and their sigmoid scores, no
+        NMS (:646-659): TODA's stage-2 consistency matching reads them. An
+        anchor head ranks every anchor (the first stage, also of a two-stage
+        detector); the CenterHead its top-K."""
+        with torch.inference_mode():
+            if self.dense_head_name == "AnchorHeadSingle":
+                boxes, scores, _ = self._anchor_decode(out)
+            else:
+                boxes, scores, _ = self.decode(out)
+            top, idx = top_k(scores, min(k, scores.shape[-1]))
+            boxes = torch.gather(boxes, 1, idx[..., None].expand(-1, -1, boxes.shape[-1]))
+            return boxes[..., :7], top
 
 
 def build_detector(model_cfg, num_class, dataset, device, seed=0):

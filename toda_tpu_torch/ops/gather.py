@@ -1,11 +1,14 @@
 """Row scatter-add (kernel K4), the voxelizer unpack (kernel K5), the row
-gather (kernel K6) and the multi-tap row gather (kernel K9).
+gather (kernel K6), the multi-tap row gather (kernel K9) and the column
+gathers of the transposed layout (kernels K7 and K8).
 
 Counterparts of ``toda_tpu/ops/pallas_gather.py``: ``scatter_rows_add``
 (:1143, TPU kernel ``_scatter_kernel`` :925), ``unpack_pillars_t`` (:1251,
 TPU kernel ``_unpack_kernel`` :1200), ``gather_rows`` (:1121, TPU kernel
-``_gather_kernel`` :97) and ``gather_rows_taps`` (:301, TPU kernel
-``_gather_taps_kernel`` :201). The CUDA kernels are in
+``_gather_kernel`` :97), ``gather_rows_taps`` (:301, TPU kernel
+``_gather_taps_kernel`` :201), ``gather_rows_taps_t`` (:479, TPU kernel
+``_gather_taps_t_kernel`` :354) and ``gather9_stacked_t`` (:682, TPU kernel
+``_gather9_stacked_kernel`` :514). The CUDA kernels are in
 ``toda_tpu_torch/csrc/gather.cu``; its header says what bounds each one on the
 H100 and why it is built as it is. Each wrapper runs its plain PyTorch version
 for a tensor on the CPU, launches its kernel for a CUDA tensor, and counts its
@@ -21,7 +24,7 @@ from . import _build
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _bound = False
 LAUNCHES = {"scatter_rows_add": 0, "unpack_pillars": 0, "gather_rows": 0,
-            "gather_rows_taps": 0}
+            "gather_rows_taps": 0, "gather_rows_taps_t": 0, "gather9_stacked_t": 0}
 
 
 def _lib():
@@ -37,6 +40,10 @@ def _lib():
         lib.toda_gather_rows.restype = i32
         lib.toda_gather_rows_taps.argtypes = [p, p, p, i64, i32, i64, i32, p]
         lib.toda_gather_rows_taps.restype = i32
+        lib.toda_gather_rows_taps_t.argtypes = [p, p, p, i64, i64, i32, i32, i32, p]
+        lib.toda_gather_rows_taps_t.restype = i32
+        lib.toda_gather9_stacked_t.argtypes = [p, p, p, i64, i64, i32, i32, i32, i32, p]
+        lib.toda_gather9_stacked_t.restype = i32
         _bound = True
     return lib
 
@@ -197,4 +204,95 @@ def gather_rows_taps(table, idx):
                                        _stream(table))
     _build.check(err, "gather_rows_taps")
     LAUNCHES["gather_rows_taps"] += 1
+    return out
+
+
+def _check_idx(idx, table, ntaps, what):
+    if idx.dtype != torch.int32 or idx.dim() != 2 or idx.shape[1] not in ntaps \
+            or idx.device != table.device or not idx.is_contiguous():
+        raise ValueError(f"{what}: idx must be a contiguous (M, T) int32 tensor on table's "
+                         f"device with T in {tuple(ntaps)}, got {idx.dtype} "
+                         f"{tuple(idx.shape)}")
+
+
+def gather_rows_taps_t_plain(tableT, idx):
+    """Plain PyTorch K8: out[t, :, m] = tableT[:, idx[m, t]], a zero column
+    where -1."""
+    safe = torch.where(idx >= 0, idx.long(), 0).t()  # (T, M)
+    g = tableT.index_select(1, safe.reshape(-1)).view(tableT.shape[0], *safe.shape)
+    return torch.where((idx >= 0).t()[:, None, :], g.transpose(0, 1),
+                       torch.zeros((), dtype=tableT.dtype, device=tableT.device)).contiguous()
+
+
+def gather_rows_taps_t(tableT, idx):
+    """T column gathers from one table in one launch: out[t, w, m] =
+    tableT[w, idx[m, t]], zero where idx[m, t] == -1.
+
+    Args:
+        tableT: (W, N) float32 or bfloat16, contiguous (one column per row
+            of the folded pillar set).
+        idx: (M, T) int32 in [-1, N), T <= 9, contiguous.
+    Returns (T, W, M) in tableT's dtype.
+    """
+    if tableT.device.type == "cpu":
+        return gather_rows_taps_t_plain(tableT, idx)
+    _check_table(tableT, "gather_rows_taps_t")
+    _check_idx(idx, tableT, range(1, 10), "gather_rows_taps_t")
+    (w, n), (m, ntap) = tableT.shape, idx.shape
+    out = torch.empty((ntap, w, m), dtype=tableT.dtype, device=tableT.device)
+    err = _lib().toda_gather_rows_taps_t(tableT.data_ptr(), idx.data_ptr(), out.data_ptr(),
+                                         n, m, ntap, w, tableT.element_size(), _stream(tableT))
+    _build.check(err, "gather_rows_taps_t")
+    LAUNCHES["gather_rows_taps_t"] += 1
+    return out
+
+
+def _stacked_identity(identity_tap, m, n):
+    """The tap K7 copies from the table's own column: ``identity_tap`` when
+    the output columns are the table's (M == N), else None."""
+    return identity_tap if identity_tap is not None and m == n else None
+
+
+def gather9_stacked_t_plain(tableT, idx, chunk=None, identity_tap=None):
+    """Plain PyTorch K7 (the TPU kernel's output, identity copy included)."""
+    w, n = tableT.shape
+    m = idx.shape[0]
+    g = gather_rows_taps_t_plain(tableT, idx)  # (9, W, M)
+    it = _stacked_identity(identity_tap, m, n)
+    if it is not None:
+        g[it] = tableT
+    if chunk is None:
+        return g.reshape(9 * w, m)
+    return g.view(9, w // chunk, chunk, m).transpose(0, 1).reshape(9 * w, m)
+
+
+def gather9_stacked_t(tableT, idx, chunk=None, identity_tap=None):
+    """All nine taps' column gathers stacked in one (9W, M) tensor.
+
+    Args:
+        tableT: (W, N) float32 or bfloat16, contiguous.
+        idx: (M, 9) int32 in [-1, N), contiguous; -1 gives a zero column.
+        chunk: None for the row order [t][W] (row t*W + w is tap t of table
+            row w); else a divisor of W, for [W / chunk][t][chunk] (row
+            j*9*chunk + t*chunk + r is tap t of table row j*chunk + r).
+        identity_tap: when M == N, the tap whose columns are copied from the
+            table's own columns (column m of tap t is tableT[:, m]) instead of
+            gathered, whatever idx holds there, as the TPU kernel does.
+    Returns (9W, M) in tableT's dtype.
+    """
+    if tableT.device.type == "cpu":
+        return gather9_stacked_t_plain(tableT, idx, chunk, identity_tap)
+    _check_table(tableT, "gather9_stacked_t")
+    _check_idx(idx, tableT, (9,), "gather9_stacked_t")
+    w, n = tableT.shape
+    m = idx.shape[0]
+    if chunk is not None and (chunk <= 0 or w % chunk):
+        raise ValueError(f"gather9_stacked_t: chunk {chunk} must divide W = {w}")
+    it = _stacked_identity(identity_tap, m, n)
+    out = torch.empty((9 * w, m), dtype=tableT.dtype, device=tableT.device)
+    err = _lib().toda_gather9_stacked_t(tableT.data_ptr(), idx.data_ptr(), out.data_ptr(), n, m,
+                                        w, tableT.element_size(), chunk or 0,
+                                        -1 if it is None else it, _stream(tableT))
+    _build.check(err, "gather9_stacked_t")
+    LAUNCHES["gather9_stacked_t"] += 1
     return out

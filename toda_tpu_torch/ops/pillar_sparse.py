@@ -15,13 +15,22 @@ The voxelizer takes the plain f32 mean path of ``voxelize_pillars_batched``
 (``ops/gather.py``). The dense scatter is K4 forward and its exact VJP, the
 row gather K6, backward. The row-major 3x3x3 conv ``pillar_conv3d``
 gathers its taps with K9 and contracts z with a plain product; its
-transposed counterpart ``pillar_inv_conv3d`` gathers with K6.
+transposed counterpart ``pillar_inv_conv3d`` gathers with K6. The conv of
+the transposed layout, ``pillar_conv3d_t`` (activations (nz*C, M), one
+column per folded pillar), gathers with K7 and K8 in both directions.
 """
 
 import torch
 import torch.nn.functional as F
 
-from .gather import gather_rows, gather_rows_taps, scatter_rows_add, unpack_pillars
+from .gather import (
+    gather9_stacked_t,
+    gather_rows,
+    gather_rows_taps,
+    gather_rows_taps_t,
+    scatter_rows_add,
+    unpack_pillars,
+)
 
 INT_MAX = 2**31 - 1
 
@@ -338,3 +347,156 @@ def pillar_inv_conv3d(x, inv_idxf, weights, fine_maskf, nz_fine):
                 if n > 0:
                     out[:, zf0:zf0 + 2 * n:2] += vals[:, zc0:zc0 + n]
     return out.masked_fill_(~fine_maskf[:, None, None], 0)
+
+
+def _taps_weights(weights):
+    """(3, 3, 3, C, Cout) (dz, dy, dx) -> (9, 3, C, Cout) [tap][dz]."""
+    c, cout = weights.shape[3:]
+    return weights.permute(1, 2, 0, 3, 4).reshape(9, 3, c, cout)
+
+
+def _zconv_t(g, taps_w, c, z_stride, acc=None):
+    """The z contraction of gathered taps in the transposed layout (the
+    ``conv_general_dilated`` of ``_conv_fwd_impl_t`` :545-583).
+
+    g (T, (nz+2)*C, M): each tap's zero-haloed columns, rows [z][C];
+    taps_w (T, 3, C, Cout). Returns acc + (nz_out, Cout, M):
+    out[zo, co, m] = sum_t sum_dz sum_ci taps_w[t, dz, ci, co]
+    g[t, (zo*s + dz)*C + ci, m]. For each tap one batched product over the
+    output z reads the 3*C-row window of each zo where it lies (a strided
+    view, no copy) and adds into acc. One convolution with the taps as
+    input channels and a (3*C, 1) kernel stepping C rows computes the same
+    with one rounding, but cuDNN runs it slower on an H100 (``chip_smoke.py``
+    times both at stage 1)."""
+    g = g.contiguous()  # the windows below are strided views of its storage
+    t, rows, m = g.shape
+    nz_out = (rows // c - 3) // z_stride + 1
+    w = taps_w.permute(0, 3, 1, 2).reshape(t, -1, 3 * c).to(g.dtype)  # (T, Cout, 3C)
+    for k in range(t):
+        x = g[k].as_strided((nz_out, 3 * c, m), (z_stride * c * m, m, 1))
+        wk = w[k].expand(nz_out, -1, -1)
+        acc = torch.bmm(wk, x) if acc is None else acc.baddbmm_(wk, x)
+    return acc
+
+
+def _zconv_t_bwd(haloT, g, w_e, nz, z_stride, dx_acc):
+    """Both cotangents of one z contraction, from the gathered output
+    cotangent (``_core_t_bwd`` :611-669).
+
+    haloT ((nz+2)*C, M_in) the forward's haloed input; g (nz_out, K, M_in)
+    the output cotangent gathered to the input columns; w_e (3, C, K) with
+    out[zo, k, i] = sum_dz,ci w_e[dz, ci, k] haloT[(zo*s + dz)*C + ci, i].
+    Adds the input cotangent to ``dx_acc`` ((nz+2, C, M_in) f32, or None to
+    skip it) and returns the weight cotangent (3, C, K) in f32."""
+    haloT = haloT.contiguous()  # the windows below are strided views of its storage
+    rows, m = haloT.shape
+    c = rows // (nz + 2)
+    nz_out, k, _ = g.shape
+    if dx_acc is not None:
+        y = torch.matmul(w_e.reshape(3 * c, k).to(g.dtype), g)  # (nz_out, 3C, M_in)
+        span = z_stride * (nz_out - 1) + 1
+        for dz in range(3):
+            dx_acc[dz:dz + span:z_stride] += y[:, dz * c:(dz + 1) * c]
+    # the input windows of every output z, read in place: (nz_out, 3C, M_in)
+    x = haloT.as_strided((nz_out, 3 * c, m), (z_stride * c * m, m, 1))
+    return torch.matmul(x, g.transpose(1, 2)).float().sum(0).view(3, c, k)
+
+
+class _PillarConv3dT(torch.autograd.Function):
+    """``pillar_conv3d_t``'s custom VJP (``_pillar_conv3d_t_core`` :586-669):
+    gathers forward through the neighbour table, and backward through its
+    inverse, so no scatter runs in either direction."""
+
+    @staticmethod
+    def forward(ctx, flatT, weights, idxf, invf, maskf, nz, z_stride, identity_tap):
+        ctx.save_for_backward(flatT, weights, idxf, invf, maskf)
+        ctx.nz, ctx.z_stride, ctx.identity_tap = nz, z_stride, identity_tap
+        c = flatT.shape[0] // nz
+        haloT = F.pad(flatT, (0, 0, c, c))  # one zero z cell (C rows) on each side
+        taps_w = _taps_weights(weights)
+        if z_stride == 1 and c % 16 == 0:
+            # stacked: one K7 launch gathers all 9 taps
+            g = gather9_stacked_t(haloT, idxf, identity_tap=identity_tap)
+            acc = _zconv_t(g.view(9, -1, idxf.shape[0]), taps_w, c, z_stride)
+        else:
+            acc = None
+            for grp in TAP_GROUPS:  # one K8 launch per dy group
+                taps = [t for t in grp if t != identity_tap]
+                g = gather_rows_taps_t(haloT, idxf[:, taps].contiguous())
+                acc = _zconv_t(g, taps_w[taps], c, z_stride, acc)
+                del g
+            if identity_tap is not None:
+                acc = _zconv_t(haloT[None], taps_w[identity_tap:identity_tap + 1], c,
+                               z_stride, acc)
+        out = torch.where(maskf, acc, torch.zeros((), dtype=acc.dtype, device=acc.device))
+        return out.reshape(-1, out.shape[-1])
+
+    @staticmethod
+    def backward(ctx, gout):
+        flatT, weights, idxf, invf, maskf = ctx.saved_tensors
+        if invf is None:
+            raise RuntimeError("pillar_conv3d_t: the backward needs the inverse table invf")
+        nz, z_stride, identity_tap = ctx.nz, ctx.z_stride, ctx.identity_tap
+        c, m_in = flatT.shape[0] // nz, flatT.shape[1]
+        cout = weights.shape[-1]
+        nz_out = -(-nz // z_stride)
+        ob = torch.where(maskf, gout, torch.zeros((), dtype=gout.dtype, device=gout.device))
+        ob = ob.to(flatT.dtype).contiguous()  # (nz_out*Cout, M_out)
+        haloT = F.pad(flatT, (0, 0, c, c))
+        taps_w = _taps_weights(weights)
+        dx = (torch.zeros((nz + 2, c, m_in), dtype=torch.float32, device=flatT.device)
+              if ctx.needs_input_grad[0] else None)
+        if cout % 16 == 0:
+            # one K7 launch through the inverse table, rows [zo][t][Cout]:
+            # both cotangents of a 9*Cout-channel z contraction
+            g = gather9_stacked_t(ob, invf, chunk=cout, identity_tap=identity_tap)
+            w_e = taps_w.permute(1, 2, 0, 3).reshape(3, c, 9 * cout)
+            dw_e = _zconv_t_bwd(haloT, g.view(nz_out, 9 * cout, m_in), w_e, nz, z_stride, dx)
+            dtaps = dw_e.view(3, c, 9, cout).permute(2, 0, 1, 3)
+        else:
+            dtaps = torch.zeros((9, 3, c, cout), dtype=torch.float32, device=flatT.device)
+            for grp in TAP_GROUPS:  # one K8 launch per dy group
+                taps = [t for t in grp if t != identity_tap]
+                g = gather_rows_taps_t(ob, invf[:, taps].contiguous())
+                for k, t in enumerate(taps):
+                    dtaps[t] = _zconv_t_bwd(haloT, g[k].view(nz_out, cout, m_in), taps_w[t],
+                                            nz, z_stride, dx)
+            if identity_tap is not None:
+                dtaps[identity_tap] = _zconv_t_bwd(haloT, ob.view(nz_out, cout, m_in),
+                                                   taps_w[identity_tap], nz, z_stride, dx)
+        dweights = dtaps.reshape(3, 3, 3, c, cout).permute(2, 0, 1, 3, 4).to(weights.dtype)
+        dflat = None if dx is None else dx[1:-1].reshape(nz * c, m_in).to(flatT.dtype)
+        return dflat, dweights, None, None, None, None, None, None
+
+
+def pillar_conv3d_t(flatT, idxf, weights, maskf, nz, z_stride=1, identity_tap=None,
+                    inv_idx_f=None):
+    """Transposed-layout 3x3x3 conv (``pillar_conv3d_t`` :672-693).
+
+    Args:
+        flatT: (nz*C, M_in) activations, one column per folded pillar, rows
+            [z][C].
+        idxf: (M_out, 9) int32 folded neighbour table into the input
+            columns, -1 missing; tap t = dy*3 + dx.
+        weights: (3, 3, 3, C, Cout) in (dz, dy, dx) order, in flatT's dtype.
+        maskf: (M_out,) bool.
+        nz: z cells of the input; z_stride: 1 or 2.
+        identity_tap: the tap whose neighbour is the column itself (4 for a
+            submanifold conv, where M_in == M_out), copied, not gathered.
+        inv_idx_f: (M_in, 9) int32 folded inverse table (inv[i, t] = o with
+            idxf[o, t] == i), needed only by the backward. The backbones
+            pass it (the mirrored table of a submanifold conv, the
+            searchsorted inverse of a strided one), so JAX's scatter that
+            derives it (``invert_neighbor_idx``) is not ported.
+    Returns (nz_out*Cout, M_out) in flatT's dtype, zero on invalid columns,
+    nz_out = ceil(nz / z_stride). Differentiable in flatT and weights.
+
+    The path follows the shapes only: a stride-1 conv with C % 16 == 0
+    gathers all 9 taps with one K7 launch and contracts them in one
+    product; every other conv gathers each dy group's taps with one K8
+    launch. The backward gathers the output cotangent through the inverse
+    table with one K7 launch (chunk Cout, when Cout % 16 == 0) or one K8
+    launch per dy group, and that one gather feeds both the input and the
+    weight cotangents."""
+    return _PillarConv3dT.apply(flatT, weights, idxf, inv_idx_f, maskf, nz, z_stride,
+                                identity_tap)

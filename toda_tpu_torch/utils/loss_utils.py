@@ -1,7 +1,47 @@
-"""CenterPoint losses: the port's own copies of ``focal_loss_centernet`` and
-``reg_loss_centernet`` from ``toda_tpu/utils/loss_utils.py`` (:104-140)."""
+"""Detection losses: the port's own copies of the anchor head's
+``sigmoid_focal_cls_loss``, ``smooth_l1_loss``, ``weighted_smooth_l1_loss``
+and ``weighted_cross_entropy_loss`` (:14-69) and CenterPoint's
+``focal_loss_centernet`` and ``reg_loss_centernet`` (:104-140) from
+``toda_tpu/utils/loss_utils.py``."""
 
 import torch
+import torch.nn.functional as F
+
+
+def sigmoid_focal_cls_loss(logits, targets, weights, gamma=2.0, alpha=0.25):
+    """Per-element sigmoid focal loss. logits, targets (..., C) (targets
+    one-hot {0, 1}); weights (...,) or (..., C). Returns (..., C)."""
+    pred = torch.sigmoid(logits)
+    alpha_weight = targets * alpha + (1 - targets) * (1 - alpha)
+    pt = targets * (1.0 - pred) + (1.0 - targets) * pred
+    bce = torch.clamp(logits, min=0) - logits * targets + torch.log1p(torch.exp(-logits.abs()))
+    loss = alpha_weight * torch.pow(pt, gamma) * bce
+    if weights.dim() == loss.dim() - 1:
+        weights = weights[..., None]
+    return loss * weights
+
+
+def smooth_l1_loss(diff, beta=1.0 / 9.0):
+    n = diff.abs()
+    if beta < 1e-5:
+        return n
+    return torch.where(n < beta, 0.5 * n ** 2 / beta, n - 0.5 * beta)
+
+
+def weighted_smooth_l1_loss(preds, targets, weights=None, beta=1.0 / 9.0, code_weights=None):
+    """(..., D) box-regression smooth-L1 with optional per-dim code weights
+    and per-row weights (...,); NaN targets count as matched."""
+    targets = torch.where(torch.isnan(targets), preds, targets)
+    diff = preds - targets
+    if code_weights is not None:
+        diff = diff * torch.as_tensor(code_weights, dtype=diff.dtype, device=diff.device)
+    loss = smooth_l1_loss(diff, beta)
+    return loss if weights is None else loss * weights[..., None]
+
+
+def weighted_cross_entropy_loss(logits, targets, weights):
+    """(..., C) logits vs (..., C) one-hot targets, times weights (...,)."""
+    return -(targets * F.log_softmax(logits, dim=-1)).sum(-1) * weights
 
 
 def focal_loss_centernet(pred, gt):
