@@ -29,33 +29,43 @@ Phases (none catches its own failure; any failure exits non-zero):
      per step asserted, losses finite; then the steady train throughput
      (loss read back every step) and peak memory;
  10. a torch.profiler window over two train steps;
- 11. tiny PartA2 in f32 on cuda and on cpu with the same weights and batch:
+ 11. tiny CenterPoint-Res in f32 (``phase_toda_tiny``): the points gradient
+     of the eval-mode loss (the pseudo-label perturbation's) and one
+     ``make_train_step_cl`` step, cuda vs cpu;
+ 12. the TODA stages at full width (``phase_toda``, ``toda_cfgs``): stage 1
+     through ``train_model`` over one epoch of the CutMix loader, its
+     checkpoint round trip, ``generate_pseudo_labels`` with the perturbation
+     (the first conv's act=False dx and K4's VJP, a K6 gather, held against
+     their plain versions), stage-2 ``make_train_step_cl`` steps; launches
+     per step asserted, scans/s, peak memory, profiles;
+ 13. tiny PartA2 in f32 on cuda and on cpu with the same weights and batch:
      the point and dense head outputs must agree, and the RoI head on the
      cpu's RoIs; once in full f32 and once with cuDNN's TF32 on, the
-     precision phases 12-13 run at;
- 12. full-width PartA2 (``parta2_cfg``: the Waymo config on synthetic
+     precision phases 14-15 run at;
+ 14. full-width PartA2 (``parta2_cfg``: the Waymo config on synthetic
      scenes): one forward records every K9 call (63) and every decoder K6
      call (27), and each is held against its plain version and timed;
- 13. with every launch counter at 0, ``eval_one_epoch`` over 3 batches of
+ 15. with every launch counter at 0, ``eval_one_epoch`` over 3 batches of
      4 scans: outputs finite, RoI recall reported, launches per forward
      asserted (K9 63, K6 27, K4 1, K5 1); then the steady predict
      throughput, peak memory and a torch.profiler window of two steps;
- 14. tiny SECOND in f32 (``second_tiny``, ``FUSED_CONV: False``): three
+ 16. tiny SECOND in f32 (``second_tiny``, ``FUSED_CONV: False``): three
      train steps on cuda and on cpu from the same weights and batch; on
      the card the fused contract (K1-K3) on the same weights and batch:
      forward outputs and step-1 gradients must agree; one
      ``pillar_conv3d_t`` with Cout 8 (K8's per-group backward) against its
      cpu run;
- 15. full-width SECOND (``second_cfg``: the Waymo config on synthetic
+ 17. full-width SECOND (``second_cfg``: the Waymo config on synthetic
      scenes, ``FUSED_CONV: False``): with every launch counter at 0,
      ``eval_one_epoch`` over 3 batches of 4 scans (K7 7, K8 12, K4 2, K5 1
      launches per forward), the steady predict throughput and a profile;
      one recorded train step feeds every K7 (18) and K8 (12) call to its
-     kernel and its plain version (exactly equal) and both are timed; with
-     every counter at 0, train steps with their launches asserted (K7 18,
-     K8 12, K4 2, K5 1, K6 1 per step), the steady train throughput, peak
-     memory and a profile;
- 16. one {"kernels": [...]} line (every kernel's row sums its recorded
+     kernel and its plain version (exactly equal) and both are timed; K10
+     on the forward's seven stride-1 K7 calls (``phase_k10``), against its
+     plain version and K7 + the z product; with every counter at 0, train
+     steps with their launches asserted (K7 18, K8 12, K4 2, K5 1, K6 1 per
+     step), the steady train throughput, peak memory and a profile;
+ 18. one {"kernels": [...]} line (every kernel's row sums its recorded
      calls over the paths that run it, and its launches over their counted
      runs), then the {"ok": true, "device": ...} line.
 Exits non-zero with no result when there is no CUDA device or the port is
@@ -79,6 +89,8 @@ SECOND_TRAIN_STEPS = 5
 SEED = 0
 TRAIN_STEPS = 20
 SCHEDULE_STEPS = 100  # OneCycle length: every step here stays in its warm-up
+TODA_SCENES = 6  # frames per synthetic domain: a stage-1 epoch is 12 frames, 3 steps
+TODA_CL_STEPS = 3
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak, H100 SXM data sheet
 H100_F32_FLOPS = 67e12  # f32 outside the tensor cores
@@ -196,6 +208,62 @@ def second_cfg():
     d.DATA_AUGMENTOR.DISABLE_AUG_LIST = ["gt_sampling"]
     cfg.MODEL.BACKBONE_3D.FUSED_CONV = False
     return cfg
+
+
+def toda_domain_cfg(stage_cfg, seed):
+    """One domain of the TODA slice in place of the stage configs' Waymo and
+    nuScenes info files: ``tools/cfgs/dataset_configs/synthetic_dataset.yaml``
+    scenes from ``seed`` (0 the source, 100 the target, as
+    tests/test_toda_pipeline.py), on the stage config's range and
+    processors, TODA_SCENES frames of 20-40 objects and 120k background
+    points (the stage configs sample 131072 points a scan), at most 256 gt
+    boxes; test mode presents the training scenes (TEST_SEED_OFFSET 0), so
+    the pseudo labels name frames that stage 2 reads back."""
+    from toda_tpu_torch.config import EDict, cfg_from_yaml_file
+
+    d = cfg_from_yaml_file(str(REPO / "tools/cfgs/dataset_configs/synthetic_dataset.yaml"),
+                           EDict())
+    d.POINT_CLOUD_RANGE = list(stage_cfg.DATA_CONFIG.POINT_CLOUD_RANGE)
+    d.DATA_PROCESSOR = stage_cfg.DATA_CONFIG.DATA_PROCESSOR
+    d.NUM_SCENES = TODA_SCENES
+    d.NUM_OBJECTS = [20, 40]
+    d.NUM_BACKGROUND_POINTS = 120000
+    d.MAX_GT_BOXES = 256
+    d.SEED = seed
+    d.TEST_SEED_OFFSET = 0
+    return d
+
+
+def toda_cfgs():
+    """The TODA slice at full width: (stage 1, stage 2, pseudo labels).
+
+    Stage 1: tools/cfgs/stage1_targetmix/centerpoint_20_waymo_01_nus_targetmix.yaml
+    (CenterPoint with PillarResBackBone8x [16, 32, 64, 64], MAX_PILLARS 32768,
+    BF16; BEV [5, 5] x [128, 256] / [256, 256]; CenterHead, one class 'car';
+    range [-51.2, 51.2]^2 x [-5, 3], voxel (0.1, 0.1, 0.2) -> 1024 x 1024 x
+    40; 131072 points a scan; CutMixDataset with CUTMIX_PROB 0.5; adam_onecycle
+    at LR 0.001). Stage 2: MODEL and DATA_CONFIG of
+    tools/cfgs/stage2_advmix/centerpoint_5_lab_nus_advmix.yaml (MixUpDataset:
+    MIXUP_PROB 0.7, GT_PROB 0.3, gt+ps_gt+ps, ADV_ALPHA 0.5, pseudo score
+    0.2, world flip / rotation / scaling; CL_CFG weight 0.1, score 0.3).
+    Pseudo labels: PSEUDO_LABEL of
+    tools/cfgs/pseudo_labels/centerpoint_generate_90_pseudo_nus_frames.yaml
+    (score 0.2, the perturbation, eps 1.0) with the stage-1 model. Cut:
+    SOURCE_CFG, TARGET_CFG and BASE_CFG are synthetic scenes
+    (``toda_domain_cfg``), not Waymo and nuScenes info files, which the repo
+    does not hold."""
+    from toda_tpu_torch.config import EDict, cfg_from_yaml_file
+
+    s1 = cfg_from_yaml_file(str(REPO / "tools/cfgs/stage1_targetmix/"
+                                "centerpoint_20_waymo_01_nus_targetmix.yaml"), EDict())
+    s1.DATA_CONFIG.SOURCE_CFG = toda_domain_cfg(s1, 0)
+    s1.DATA_CONFIG.TARGET_CFG = toda_domain_cfg(s1, 100)
+    s2 = cfg_from_yaml_file(str(REPO / "tools/cfgs/stage2_advmix/"
+                                "centerpoint_5_lab_nus_advmix.yaml"), EDict())
+    s2.DATA_CONFIG.BASE_CFG = toda_domain_cfg(s2, 100)
+    pl = cfg_from_yaml_file(str(REPO / "tools/cfgs/pseudo_labels/"
+                                "centerpoint_generate_90_pseudo_nus_frames.yaml"), EDict())
+    return s1, s2, pl.PSEUDO_LABEL
 
 
 def second_tiny(cfg, fused=False):
@@ -526,10 +594,11 @@ def log_rows(rows):
 
 def check_train_kernels(dx_calls, dw_calls, gather_calls):
     """Hold each recorded backward call's kernel against its plain version
-    and time both; returns the K2, K3 and K6 rows."""
+    (K6 exactly, ``check_gathers``) and time both; returns the K2, K3 and
+    K6 rows."""
     import torch
 
-    from toda_tpu_torch.ops import fused_conv, gather
+    from toda_tpu_torch.ops import fused_conv
 
     rows = {"K2": [], "K3": [], "K6": []}
     for (x, sc, sh, w, invf, gy, s, act), _ in dx_calls:
@@ -589,21 +658,7 @@ def check_train_kernels(dx_calls, dw_calls, gather_calls):
             plain_ms=cuda_ms(lambda: fused_conv.fused_bnconv9_dw_plain(
                 x, sc, sh, idx, gy, s, act), 2),
             library_ms=None, bound=bound_ms(nbytes, flops, peak)))
-    ((table, idx), _), = gather_calls
-    out = gather.gather_rows(table, idx)
-    assert torch.equal(out, gather.gather_rows_plain(table, idx)), "K6 differs from plain"
-    padded = torch.cat([table, table.new_zeros((1, table.shape[1]))])
-    safe = torch.where(idx >= 0, idx.long(), table.shape[0])
-    row_bytes = table.shape[1] * table.element_size()
-    nbytes = (int(torch.count_nonzero(idx >= 0).item()) + idx.numel()) * row_bytes \
-        + idx.numel() * 4
-    rows["K6"].append(dict(
-        shape=f"table{tuple(table.shape)} {table.dtype} idx({idx.numel()},)",
-        err=0.0, tol="0 (exact)",
-        ms=cuda_ms(lambda: gather.gather_rows(table, idx), 10),
-        plain_ms=cuda_ms(lambda: gather.gather_rows_plain(table, idx), 10),
-        library_ms=cuda_ms(lambda: padded.index_select(0, safe), 10),
-        bound=bound_ms(nbytes, 0, H100_F32_FLOPS)))
+    rows["K6"] = check_gathers((), gather_calls)["K6"]
     return rows
 
 
@@ -612,11 +667,12 @@ def phase_train_kernels(state, step, batch):
     hold each kernel against its plain version on them and time both."""
     import torch
 
-    from toda_tpu_torch.ops import fused_conv, pillar_sparse
+    from toda_tpu_torch.ops import fused_conv, gather
 
+    # the dense scatter's VJP calls gather_rows from inside ops/gather.py
     with Recorder(fused_conv, "fused_bnconv9_bwd_dx") as kdx, \
             Recorder(fused_conv, "fused_bnconv9_dw") as kdw, \
-            Recorder(pillar_sparse, "gather_rows") as k6:
+            Recorder(gather, "gather_rows") as k6:
         _, tb = step(state, batch)
         loss = float(tb["loss"])
     assert math.isfinite(loss), loss
@@ -1163,10 +1219,11 @@ def zconv_choice(call):
         f"{cuda_ms(tall, 5):.3f} ms; max diff {err:.3g} of max")
 
 
-def phase_second_kernels(state, step, batch):
+def phase_second_kernels(state, step, batch, layer_shapes):
     """Record every K7 and K8 call of one full-width train step (forward and
     backward), then hold each kernel against its plain version on them and
-    time both."""
+    time both; then K10 on the forward's stride-1 K7 calls (``phase_k10``).
+    Returns (rows, K10 launches)."""
     import torch
 
     from toda_tpu_torch.ops import pillar_sparse
@@ -1182,14 +1239,19 @@ def phase_second_kernels(state, step, batch):
     with torch.no_grad():
         rows = check_column_gathers(k7.calls, k8.calls)
         zconv_choice(k7.calls[0])
-    del k7, k8
     log_rows(rows)
     for key in ("K7", "K8"):
         log(f"  {key} per train step: {sum(r['ms'] for r in rows[key]):.3f} ms over "
             f"{len(rows[key])} calls, bound {sum(r['bound'][0] for r in rows[key]):.3f} ms, "
             f"plain {sum(r['plain_ms'] for r in rows[key]):.3f} ms, index_select "
             f"{sum(r['library_ms'] for r in rows[key]):.3f} ms")
-    return rows
+    forward = [call for call in k7.calls if "chunk" not in call[1]]
+    del k7, k8
+    assert len(forward) == 7, len(forward)
+    with torch.no_grad():
+        k10_rows, k10_launches = phase_k10(forward, layer_shapes)
+    rows.update(k10_rows)
+    return rows, k10_launches
 
 
 def second_launches():
@@ -1292,7 +1354,12 @@ def phase_second(cfg):
     step = make_train_step(tbundle)
     log(f"SECOND training: {len(tbatches)} batches of {BATCH} augmented scans, "
         f"{int(sum((b['gt_boxes'][..., -1] > 0).sum() for b in tbatches))} gt boxes")
-    rows = phase_second_kernels(state, step, tbatches[0])
+    # the haloed table height W = (nz + 2) * C of each stage's stride-1 convs
+    nz, layer_shapes = int(tdataset.grid_size[2]), {}
+    for ch in cfg.MODEL.BACKBONE_3D.CHANNELS:
+        layer_shapes[(nz + 2) * ch] = (nz, ch)
+        nz = -(-nz // 2)
+    rows, k10_launches = phase_second_kernels(state, step, tbatches[0], layer_shapes)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -1314,8 +1381,387 @@ def phase_second(cfg):
     log(f"phase SECOND train throughput: {train_rate:.2f} scans/s steady state (batch {BATCH}, "
         f"best of 3 x 10 steps, loss read back every step)")
     phase_profile(train, "SECOND train step")
-    return (rows, {key: launches[key] + tlaunches[key] for key in launches}, predict_rate,
-            train_rate, peak)
+    launches = {key: launches[key] + tlaunches[key] for key in launches}
+    launches["K10"] = k10_launches
+    return rows, launches, predict_rate, train_rate, peak
+
+
+def toda_launches():
+    from toda_tpu_torch.ops import fused_conv, gather
+
+    fc, ga = fused_conv.LAUNCHES, gather.LAUNCHES
+    return {"K1": fc["fused_bnconv9"], "dx": fc["fused_bnconv9_bwd_dx"],
+            "dx_raw": fc["fused_bnconv9_bwd_dx_raw"], "dW": fc["fused_bnconv9_dw"],
+            "dW_raw": fc["fused_bnconv9_dw_raw"], "K4": ga["scatter_rows_add"],
+            "K5": ga["unpack_pillars"], "K6": ga["gather_rows"],
+            "K7-K10": ga["gather9_stacked_t"] + ga["gather_rows_taps_t"]
+            + ga["gather_rows_taps"] + ga["gather9_conv_t"]}
+
+
+# launches of one step on the TODA path: a train step (stage 1; act=False
+# dx and dW at the three down convs, whose inputs are residual joins'
+# applied outputs, and dW at the first conv), the perturbation (the
+# eval-mode loss's gradient in the points: every conv's dx, so one more
+# act=False dx, the raw first conv's; no dW; K6 for the dense scatter's VJP
+# and for K4's) and a CL step (two forwards, one backward)
+TODA_PER_STEP = {
+    "train": {"K1": 11, "dx": 10, "dx_raw": 3, "dW": 11, "dW_raw": 4, "K4": 2, "K5": 1,
+              "K6": 1, "K7-K10": 0},
+    "perturb": {"K1": 11, "dx": 11, "dx_raw": 4, "dW": 0, "dW_raw": 0, "K4": 2, "K5": 1,
+                "K6": 2, "K7-K10": 0},
+    "predict": {"K1": 11, "dx": 0, "dx_raw": 0, "dW": 0, "dW_raw": 0, "K4": 2, "K5": 1,
+                "K6": 0, "K7-K10": 0},
+    "cl": {"K1": 22, "dx": 20, "dx_raw": 6, "dW": 22, "dW_raw": 8, "K4": 4, "K5": 2,
+           "K6": 2, "K7-K10": 0},
+}
+
+
+def times(per_step, n, plus=None):
+    return {k: v * n + (plus or {}).get(k, 0) for k, v in per_step.items()}
+
+
+def phase_toda_tiny():
+    """Tiny f32 CenterPoint-Res, cuda vs cpu on the same weights and batch:
+    the points gradient of the eval-mode loss (the pseudo-label
+    perturbation's; every conv's dx kernel, the raw first conv's with
+    act=False at C = 8, K4's VJP through K6) within 1e-4 of its largest
+    value and of the same sign wherever |g| > 1e-3 of the largest; then one
+    ``make_train_step_cl`` step (score threshold 0, so every top-32 box is
+    matched) from the same weights on the same dual batch: the five loss
+    terms within 1e-4 relative, the updates as ``update_mismatches`` holds
+    them, the BatchNorm statistics within 1e-4."""
+    import numpy as np
+    import torch
+
+    from toda_tpu_torch.datasets import DataLoader, build_dataloader
+    from toda_tpu_torch.datasets.dataset_cl import CLPairDataset
+    from toda_tpu_torch.models import build_network
+    from toda_tpu_torch.runtime.pseudo_label import points_gradient
+    from toda_tpu_torch.runtime.train_cl import make_train_step_cl
+    from toda_tpu_torch.runtime.train_utils import create_train_state
+    from toda_tpu_torch.weights import randomize_
+
+    cfg = tiny_cfg()
+    np.random.seed(SEED)
+    ds, loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, batch_size=2)
+    batch = next(iter(loader))
+    cpu = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), ds, device="cpu")
+    randomize_(cpu.module, SEED)
+    gpu = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), ds, device="cuda")
+    gpu.module.load_state_dict(cpu.module.state_dict(), strict=True)
+    reset_launches()
+    g_g = points_gradient(gpu, batch).cpu()
+    launches = toda_launches()
+    g_c = points_gradient(cpu, batch)
+    scale = g_c.abs().max().item()
+    err = (g_g - g_c).abs().max().item()
+    live = g_c[..., :3].abs() > 1e-3 * scale
+    assert scale > 0 and err <= 1e-4 * scale, (err, scale)
+    assert int(live.sum()) > 100 and torch.equal(torch.sign(g_g[..., :3])[live],
+                                                 torch.sign(g_c[..., :3])[live])
+    assert launches == TODA_PER_STEP["perturb"], launches
+
+    np.random.seed(SEED)
+    tds, _, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, batch_size=2, training=True)
+    cl = CLPairDataset(tds)
+    cl_batch = next(iter(DataLoader(cl, batch_size=2, training=True, prefetch=0)))
+    runs = {}
+    for device in ("cpu", "cuda"):
+        bundle = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), cl, device=device, seed=SEED)
+        state, _ = create_train_state(bundle, cfg.OPTIMIZATION, 10)
+        init = {k: v.detach().cpu().clone() for k, v in bundle.module.state_dict().items()}
+        _, tb = make_train_step_cl(bundle, 0.1, score_thresh=0.0)(state, cl_batch)
+        runs[device] = dict(tb={k: float(v) for k, v in tb.items()}, init=init, opt=state,
+                            grads={n: p.grad.cpu() for n, p in bundle.module.named_parameters()},
+                            final={k: v.cpu() for k, v in bundle.module.state_dict().items()})
+    c, g = runs["cpu"], runs["cuda"]
+    for k, v in c["tb"].items():
+        assert abs(g["tb"][k] - v) <= 1e-4 * abs(v), (k, g["tb"][k], v)
+    assert c["tb"]["consistency_center"] > 0
+    assert all(torch.equal(c["init"][k], g["init"][k]) for k in c["init"]), "the inits differ"
+    bad, worst = update_mismatches(g["final"], c["final"], c["init"], c["grads"],
+                                   c["opt"].lr_fn(0))
+    assert not bad, f"tiny CL step cuda/cpu updates differ: {bad[:5]}"
+    for k in c["final"]:
+        if k.endswith(("running_mean", "running_var")):
+            assert torch.allclose(g["final"][k], c["final"][k], rtol=1e-4, atol=1e-4), k
+    log(f"phase TODA tiny cuda-vs-cpu (f32): eval-loss points gradient within "
+        f"{err / scale:.3g} of its max (tol 1e-4), signs equal on {int(live.sum())} live "
+        f"elements, launches {launches}; one CL step: losses {g['tb']} vs {c['tb']}; updates "
+        f"within 1e-3 x LR where live (max {worst:.3g} x LR); BN statistics within 1e-4")
+
+
+def phase_toda():
+    """The TODA recipe at full width (``toda_cfgs``) through the entry points
+    its three CLIs call: stage 1 (``train_model`` over one epoch of the
+    CutMix loader, its checkpoint, ``load_params_only``), pseudo labels
+    (``generate_pseudo_labels`` with the perturbation over the target
+    domain's frames, with the stage-1 weights), stage 2 (``MixUpDataset`` over
+    those pseudo infos in ``CLPairDataset``, ``make_train_step_cl`` steps).
+    Launch counts are asserted per step; the perturbation's raw first-conv
+    dx and K4-VJP K6 calls are held against their plain versions
+    (``check_train_kernels``). Returns (rows, launches, {metric: value})."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from toda_tpu_torch.datasets import (
+        DataLoader,
+        build_cutmix_dataloader,
+        build_dataloader,
+        build_mixup_dataloader,
+    )
+    from toda_tpu_torch.datasets.dataset_cl import CLPairDataset
+    from toda_tpu_torch.models import build_network
+    from toda_tpu_torch.ops import fused_conv, gather
+    from toda_tpu_torch.runtime import checkpoint
+    from toda_tpu_torch.runtime.pseudo_label import generate_pseudo_labels, make_perturb_step
+    from toda_tpu_torch.runtime.train_cl import make_train_step_cl, select_cl_arrays
+    from toda_tpu_torch.runtime.train_utils import (
+        create_train_state,
+        make_train_step,
+        train_model,
+    )
+
+    s1, s2, plcfg = toda_cfgs()
+    metrics, total = {}, {}
+    ckpt_dir = REPO / "build" / "toda_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    # stage 1: inter-domain CutMix training through train_model
+    np.random.seed(SEED)
+    ds1, loader1, _ = build_cutmix_dataloader(s1.DATA_CONFIG, s1.CLASS_NAMES, batch_size=BATCH,
+                                              training=True)
+    b1 = build_network(s1.MODEL, len(s1.CLASS_NAMES), ds1, device="cuda", seed=SEED)
+    state1, _ = create_train_state(b1, s1.OPTIMIZATION, len(loader1))
+    seen = []
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.time()
+    state1 = train_model(b1, state1, loader1, 0, 1, ckpt_dir,
+                         hooks=[lambda st, batch, tb, it: seen.append((batch, float(tb["loss"])))])
+    wall = time.time() - t0
+    launches = toda_launches()
+    n1 = len(seen)
+    assert n1 == len(loader1) == 2 * TODA_SCENES // BATCH, (n1, len(loader1))
+    assert launches == times(TODA_PER_STEP["train"], n1), launches
+    assert all(math.isfinite(v) for _, v in seen) and ds1.train_percent == 1.0
+    total = times(TODA_PER_STEP["train"], n1)
+    ckpt = checkpoint.latest_checkpoint(ckpt_dir)
+    assert ckpt is not None and ckpt.name == "checkpoint_epoch_1.pth", ckpt
+    log(f"phase TODA stage 1: train_model over one CutMix epoch of {len(ds1)} frames "
+        f"({n1} steps of {BATCH}, numpy batches from the prefetching loader) in {wall:.1f}s; "
+        f"launches {launches}; losses {[round(v, 4) for _, v in seen]}; "
+        f"{int(sum((b['gt_boxes'][..., -1] > 0).sum() for b, _ in seen))} gt boxes; peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; wrote {ckpt.name}")
+
+    # the checkpoint round trip: params-only transfer and a full resume
+    probe = build_network(s1.MODEL, len(s1.CLASS_NAMES), ds1, device="cuda", seed=SEED + 1)
+    checkpoint.load_params_only(ckpt, probe)
+    sd = b1.module.state_dict()
+    assert all(torch.equal(sd[k], v) for k, v in probe.module.state_dict().items())
+    pstate, _ = create_train_state(probe, s1.OPTIMIZATION, len(loader1))
+    assert checkpoint.load_checkpoint(ckpt, probe, pstate) == 1 and pstate.count == n1
+    assert all(torch.equal(a, b) for a, b in zip(pstate.mu + pstate.nu, state1.mu + state1.nu))
+    del probe, pstate
+    step1 = make_train_step(b1)
+    metrics["stage1_train_scans_per_s"] = steady_rate(
+        train_run(b1, state1, step1, [b for b, _ in seen]))
+    log(f"phase TODA checkpoint: load_params_only and load_checkpoint of {ckpt.name} give "
+        f"the same weights, BN statistics and Adam state; stage-1 train throughput "
+        f"{metrics['stage1_train_scans_per_s']:.2f} scans/s steady state (batch {BATCH}, "
+        f"best of 3 x 10 steps, loss read back every step)")
+    del b1, state1, step1, seen
+    torch.cuda.empty_cache()
+
+    # pseudo labels with the perturbation over the target domain, stage-1 weights
+    tds, tloader, _ = build_dataloader(toda_domain_cfg(s1, 100), s1.CLASS_NAMES,
+                                       batch_size=BATCH)
+    pb = build_network(s1.MODEL, len(s1.CLASS_NAMES), tds, device="cuda", seed=SEED + 1)
+    checkpoint.load_params_only(ckpt, pb)
+    n_pl = len(tloader)
+    with Recorder(fused_conv, "fused_bnconv9_bwd_dx") as kdx, \
+            Recorder(gather, "gather_rows") as k6:
+        reset_launches()
+        t0 = time.time()
+        infos = generate_pseudo_labels(pb, tloader, tds, s1.CLASS_NAMES,
+                                       score_thresh=float(plcfg.SCORE_THRESH),
+                                       with_perturb=bool(plcfg.WITH_PERTURB),
+                                       eps=float(plcfg.EPS))
+        wall = time.time() - t0
+        launches = toda_launches()
+    per_sweep = {k: TODA_PER_STEP["predict"][k] + v for k, v in TODA_PER_STEP["perturb"].items()}
+    assert launches == times(per_sweep, n_pl), launches
+    total = times(per_sweep, n_pl, total)
+    # the first conv's dx (act=False on the voxelizer's means, 8 channels)
+    # and K4's VJP (a K6 gather of the (cell, features + count) f32 sums'
+    # cotangent); the other K6 call of each step is the dense scatter's VJP
+    c = tds.point_feature_encoder.num_point_features
+    raw_dx = [k for k in kdx.calls if not k[0][7] and k[0][0].shape[-1] == -(-c // 8) * 8]
+    k4_vjp = [k for k in k6.calls if k[0][0].shape[1] == c + 1]
+    assert len(raw_dx) == n_pl and len(k4_vjp) == n_pl and len(k6.calls) == 2 * n_pl, \
+        (len(raw_dx), len(k4_vjp), len(k6.calls))
+    n_boxes = sum(len(i["gt_boxes"]) for i in infos)
+    assert len(infos) == BATCH * n_pl and all(
+        i["point_perturb"].shape == (tds.max_points, 3)
+        and set(np.unique(i["point_perturb"])) <= {-1.0, 0.0, 1.0} for i in infos)
+    assert any(np.abs(i["point_perturb"]).sum() > 0 for i in infos)
+    log(f"phase TODA pseudo labels: generate_pseudo_labels over {len(infos)} target frames "
+        f"(score {plcfg.SCORE_THRESH}, eps {plcfg.EPS}, the perturbation) in {wall:.1f}s; "
+        f"launches {launches} ({n_pl} predict + {n_pl} perturb steps: per perturb step "
+        f"{TODA_PER_STEP['perturb']}); {n_boxes} pseudo boxes kept, "
+        f"{sum(len(i['p_voxel_coords']) for i in infos)} perturbed voxels stored")
+    if n_boxes == 0:
+        zero = generate_pseudo_labels(pb, tloader, tds, s1.CLASS_NAMES, score_thresh=0.0,
+                                      with_perturb=True, eps=float(plcfg.EPS))
+        log(f"  no detection of the briefly trained stage-1 weights reaches score "
+            f"{plcfg.SCORE_THRESH}; at score 0 the same sweep keeps "
+            f"{sum(len(i['gt_boxes']) for i in zero)} boxes (the perturbation's targets "
+            f"are the NMS output at POST_PROCESSING.SCORE_THRESH in both)")
+    with torch.no_grad():
+        rows = check_train_kernels(raw_dx, (), k4_vjp)
+    del kdx, k6, raw_dx, k4_vjp
+    log_rows(rows)
+    first = next(iter(tloader))
+    dev = pb.to_device({k: first[k] for k in ("points", "points_mask", "gt_boxes")})
+    perturb = make_perturb_step(pb)
+    metrics["perturb_scans_per_s"] = steady_rate(lambda: float(perturb(dev)[0, 0, 0]))
+    log(f"phase TODA perturb throughput: {metrics['perturb_scans_per_s']:.2f} scans/s steady "
+        f"state (batch {BATCH}, best of 3 x 10 steps, the sign read back every step)")
+    phase_profile(lambda: float(perturb(dev)[0, 0, 0]), "TODA perturb step")
+    del pb, dev, perturb
+    torch.cuda.empty_cache()
+
+    # stage 2: MixUp over the pseudo infos, two views, the consistency loss
+    np.random.seed(SEED)
+    mds, _, _ = build_mixup_dataloader(s2.DATA_CONFIG, s2.CLASS_NAMES, batch_size=BATCH,
+                                       pseudo_infos=infos, training=True)
+    cl = CLPairDataset(mds)
+    cbatches = [b for _, b in zip(range(TODA_CL_STEPS), DataLoader(cl, BATCH, training=True))]
+    b2 = build_network(s2.MODEL, len(s2.CLASS_NAMES), cl, device="cuda", seed=SEED + 2)
+    checkpoint.load_params_only(ckpt, b2)
+    state2, _ = create_train_state(b2, s2.OPTIMIZATION, SCHEDULE_STEPS)
+    cl_cfg = s2.MODEL.CL_CFG
+    step2 = make_train_step_cl(b2, consistency_weight=float(cl_cfg.WEIGHT),
+                               score_thresh=float(cl_cfg.SCORE_THRESH))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.time()
+    tbs = [{k: round(float(v), 4) for k, v in step2(state2, b)[1].items()} for b in cbatches]
+    wall = time.time() - t0
+    launches = toda_launches()
+    n2 = len(cbatches)
+    assert n2 == TODA_CL_STEPS and launches == times(TODA_PER_STEP["cl"], n2), launches
+    total = times(TODA_PER_STEP["cl"], n2, total)
+    assert all(math.isfinite(v) for tb in tbs for v in tb.values()), tbs
+    metrics["cl_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"phase TODA stage 2: {n2} make_train_step_cl steps (MixUpDataset over {len(infos)} "
+        f"pseudo frames + {TODA_SCENES} labelled, adv and org views of {BATCH} scans, numpy "
+        f"batches in) in {wall:.1f}s; launches {launches}; {tbs}; peak device memory "
+        f"{metrics['cl_peak_gib']:.2f} GiB")
+    dev2 = [{view: b2.to_device(v) for view, v in select_cl_arrays(b).items()} for b in cbatches]
+    turn = itertools.count()
+
+    def cl_run():
+        return float(step2(state2, dev2[next(turn) % len(dev2)])[1]["loss"])
+
+    metrics["cl_train_scans_per_s"] = steady_rate(cl_run)
+    log(f"phase TODA CL throughput: {metrics['cl_train_scans_per_s']:.2f} scans/s steady state "
+        f"(batch {BATCH} scans, two views each, best of 3 x 10 steps, loss read back every "
+        f"step)")
+    phase_profile(cl_run, "TODA CL step")
+    del b2, state2, step2, dev2, cbatches
+    torch.cuda.empty_cache()
+    return rows, total, metrics
+
+
+def k10_work(table, idx, nz, cout, identity):
+    """(bytes, flops) of one K10 call: the table columns it names (and its
+    own, for the identity tap) read once, the (nz*Cout, M) output written
+    once, idx and the f32 weights read once; 2*3C*Cout flops per output z of
+    each (column, tap) that reads a column."""
+    import torch
+
+    w = table.shape[0]
+    c = w // (nz + 2)
+    m = idx.shape[0]
+    taps = idx.clone()
+    if identity is not None:
+        taps[:, identity] = torch.arange(m, device=idx.device, dtype=idx.dtype)
+    cols = int(torch.unique(taps[taps >= 0]).numel())
+    eb = table.element_size()
+    pairs = int(torch.count_nonzero(taps >= 0).item())
+    nbytes = cols * w * eb + nz * cout * m * eb + idx.numel() * 4 + 27 * c * cout * 4
+    return nbytes, 2 * 3 * c * cout * nz * pairs
+
+
+def phase_k10(k7_calls, layer_shapes):
+    """K10 (``gather9_conv_t``) on every stride-1 K7 call of SECOND's
+    recorded forward (stages 1-4): each table and tap table gets seeded
+    He-normal weights of its layer's (C, C) shape; K10's output is held
+    against its plain version (2^-7 relative + 2^-12 of the sum of the terms'
+    magnitudes: f32 sums in another order, one bf16 rounding each) and
+    against K7 followed by ``pillar_conv3d_t``'s z product, the path it
+    would replace (which rounds each tap's partial sum to bf16: 2^-7
+    relative + 9 x 2^-8 of the sum of magnitudes); all three are timed.
+    ``layer_shapes`` maps a haloed table height W to (nz, C). K10's launches
+    are those of the checks here (no path runs it)."""
+    import torch
+
+    from toda_tpu_torch.ops import gather, pillar_sparse
+
+    gen = torch.Generator().manual_seed(SEED)
+    rows = {"K10": []}
+    launches = 0
+    for (table, idx), kw in k7_calls:
+        nz, c = layer_shapes[table.shape[0]]
+        it = kw.get("identity_tap")
+        w = (torch.randn((3, 3, 3, c, c), generator=gen) * (2.0 / (27 * c)) ** 0.5).to(
+            device=table.device, dtype=table.dtype)
+        before = gather.LAUNCHES["gather9_conv_t"]
+        out = gather.gather9_conv_t(table, idx, w, nz, identity_tap=it)
+        launches += gather.LAUNCHES["gather9_conv_t"] - before
+        ref = gather.gather9_conv_t_plain(table, idx, w, nz, identity_tap=it)
+        mag = gather.gather9_conv_t_plain(table.float().abs(), idx, w.float().abs(), nz,
+                                          identity_tap=it)
+        taps_w = w.permute(1, 2, 0, 3, 4).reshape(9, 3, c, c)
+
+        def k7_path(table=table, idx=idx, taps_w=taps_w, c=c, it=it):
+            g = gather.gather9_stacked_t(table, idx, identity_tap=it)
+            return pillar_sparse._zconv_t(g.view(9, table.shape[0], -1), taps_w, c, 1)
+
+        path = k7_path().reshape(out.shape)
+        err = (out.float() - ref.float()).abs()
+        assert bool((err <= 2.0 ** -7 * ref.float().abs() + 2.0 ** -12 * mag).all()), \
+            f"K10 {tuple(table.shape)}: max err {err.max().item()} against its plain version"
+        perr = (out.float() - path.float()).abs()
+        assert bool((perr <= 2.0 ** -7 * path.float().abs() + 9 * 2.0 ** -8 * mag).all()), \
+            f"K10 {tuple(table.shape)}: max err {perr.max().item()} against K7 + z product"
+        del out, ref, mag, path
+        nbytes, flops = k10_work(table, idx, nz, c, it)
+        r = dict(shape=f"table{tuple(table.shape)} {table.dtype} idx{tuple(idx.shape)} nz{nz} "
+                       f"C=Cout={c}",
+                 err=err.max().item(), tol="2^-7 rel + 2^-12 x sum|terms|",
+                 path_err=perr.max().item(),
+                 ms=cuda_ms(lambda: gather.gather9_conv_t(table, idx, w, nz, identity_tap=it), 5),
+                 plain_ms=cuda_ms(lambda: gather.gather9_conv_t_plain(table, idx, w, nz, it), 2),
+                 path_ms=cuda_ms(k7_path, 5), library_ms=None,
+                 bound=bound_ms(nbytes, flops, H100_BF16_FLOPS))
+        rows["K10"].append(r)
+        del err, perr
+    assert launches == len(k7_calls), launches
+    log(f"phase K10: {launches} stride-1 convs of SECOND's forward through gather9_conv_t")
+    for r in rows["K10"]:
+        log(f"  K10 {r['shape']}: max_abs_err {r['err']:.3g} vs plain ({r['tol']}), "
+            f"{r['path_err']:.3g} vs K7 + z product; ms {r['ms']:.4f}, plain_ms "
+            f"{r['plain_ms']:.4f}, K7 + z product ms {r['path_ms']:.4f}, bound_ms "
+            f"{r['bound'][0]:.4f} ({r['bound'][1]})")
+    log(f"  K10 per forward: {sum(r['ms'] for r in rows['K10']):.3f} ms over {launches} "
+        f"calls, bound {sum(r['bound'][0] for r in rows['K10']):.3f} ms, K7 + z product "
+        f"{sum(r['path_ms'] for r in rows['K10']):.3f} ms")
+    return rows, launches
 
 
 def main():
@@ -1388,6 +1834,17 @@ def main():
     del tbundle, state, step, tdev, tbatches
     torch.cuda.empty_cache()
 
+    # the TODA stages: stage-1 mix training, FGSM pseudo labels, stage-2 CL
+    phase_toda_tiny()
+    trows, tl, toda = phase_toda()
+    for key, rs in trows.items():
+        rows[key].extend(rs)
+    launches["K1"] += tl["K1"]
+    launches["K2"] += tl["dx"] + tl["dW"] - tl["dW_raw"]
+    launches["K3"] += tl["dW_raw"]
+    for key in ("K4", "K5", "K6"):
+        launches[key] += tl[key]
+
     # PartA2 inference at the Waymo config's widths
     phase_parta2_tiny_parity()
     # PyTorch's default again for the full-width PartA2 run: cuDNN may take
@@ -1422,7 +1879,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = True
     srows, slaunches, second_scans, second_train, second_peak = phase_second(second_cfg())
     rows.update(srows)
-    for key in ("K7", "K8", "K4", "K5", "K6"):
+    for key in ("K7", "K8", "K4", "K5", "K6", "K10"):
         launches[key] = launches.get(key, 0) + slaunches[key]
 
     meta = {
@@ -1444,6 +1901,8 @@ def main():
                "toda_tpu/ops/pallas_gather.py:354"),
         "K9": ("gather_rows_taps", "toda_tpu_torch/csrc/gather.cu",
                "toda_tpu/ops/pallas_gather.py:201"),
+        "K10": ("gather9_conv_t", "toda_tpu_torch/csrc/gather.cu",
+                "toda_tpu/ops/pallas_gather.py:729"),
     }
     kernels = []
     for key, (name, source, replaces) in meta.items():
@@ -1462,15 +1921,21 @@ def main():
             "library_ms": None if any(v is None for v in libs) else sum(libs),
         })
     log(f"(kernel times are summed over the kernel's recorded calls: K1 per CenterPoint-Res "
-        f"forward of batch {BATCH}; K2, K3 per train step; K9 per PartA2 forward; K4, K5 one "
-        f"CenterPoint-Res and one PartA2 forward; K6 one train step and one PartA2 forward; "
-        f"K7, K8 one SECOND train step. Launches are summed over the counted runs: "
-        f"eval_one_epoch of each model, {TRAIN_STEPS} CenterPoint-Res and "
-        f"{SECOND_TRAIN_STEPS} SECOND train steps. {scans_per_s:.2f} CenterPoint-Res predict "
-        f"scans/s, {train_scans:.2f} train scans/s, train peak memory {train_peak:.2f} GiB, "
-        f"{parta2_scans:.2f} PartA2 predict scans/s, {second_scans:.2f} SECOND predict "
-        f"scans/s, {second_train:.2f} SECOND train scans/s, SECOND train peak memory "
-        f"{second_peak:.2f} GiB, on {card})")
+        f"forward of batch {BATCH}; K2, K3 per train step, K2 also the TODA perturbation's "
+        f"raw first-conv dx (one per perturb step); K9 per PartA2 forward; K4, K5 one "
+        f"CenterPoint-Res and one PartA2 forward; K6 one train step, one PartA2 forward and "
+        f"the perturbation's K4 VJPs (one per perturb step); K7, K8 one SECOND train step; K10 the seven stride-1 "
+        f"convs of one SECOND forward, which no path runs through it. Launches are summed "
+        f"over the counted runs: eval_one_epoch of each model, {TRAIN_STEPS} CenterPoint-Res "
+        f"and {SECOND_TRAIN_STEPS} SECOND train steps, the TODA stages (stage-1 train_model, "
+        f"the pseudo-label sweep, {TODA_CL_STEPS} CL steps), K10's checks. "
+        f"{scans_per_s:.2f} CenterPoint-Res predict scans/s, {train_scans:.2f} train scans/s, "
+        f"train peak memory {train_peak:.2f} GiB, {parta2_scans:.2f} PartA2 predict scans/s, "
+        f"{second_scans:.2f} SECOND predict scans/s, {second_train:.2f} SECOND train scans/s, "
+        f"SECOND train peak memory {second_peak:.2f} GiB; TODA: "
+        f"{toda['stage1_train_scans_per_s']:.2f} stage-1 train scans/s, "
+        f"{toda['perturb_scans_per_s']:.2f} perturb scans/s, {toda['cl_train_scans_per_s']:.2f} "
+        f"CL train scans/s, CL peak memory {toda['cl_peak_gib']:.2f} GiB; on {card})")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

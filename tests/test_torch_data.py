@@ -81,9 +81,9 @@ def test_test_mode_batches_equal_jax():
 
 def test_training_batches_equal_jax():
     """Training mode: the same shuffled frames, augmentation draws
-    (flip, rotation, scaling from the global numpy RNG, seeded alike),
-    outside-box removal, point sampling and padding; the training loader
-    drops the last partial batch."""
+    (flip, rotation, scaling from the global numpy RNG, seeded alike) and
+    their (B, 7) ``aug_vector``, outside-box removal, point sampling and
+    padding; the training loader drops the last partial batch."""
     jcfg, pcfg = both_cfgs()
     np.random.seed(0)
     _, jloader, _ = j_build_dataloader(jcfg.DATA_CONFIG, jcfg.CLASS_NAMES, batch_size=4,
@@ -95,8 +95,8 @@ def test_training_batches_equal_jax():
     pbatches = list(loader)
     assert len(pbatches) == len(jbatches) == 1
     for jb, pb in zip(jbatches, pbatches):
-        assert set(pb) == set(jb) - {"aug_vector"}  # the stage-2 vector comes later
-        for k in ("points", "points_mask", "gt_boxes"):
+        assert set(pb) == set(jb)
+        for k in ("points", "points_mask", "gt_boxes", "aug_vector"):
             assert jb[k].dtype == pb[k].dtype, k
             np.testing.assert_array_equal(pb[k], jb[k], err_msg=k)
         assert pb["frame_id"] == jb["frame_id"]

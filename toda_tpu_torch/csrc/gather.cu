@@ -1,6 +1,6 @@
 // Row scatter-add (K4), voxelizer unpack (K5), row gather (K6), multi-tap
-// row gather (K9) and the two column gathers of the transposed layout (K7,
-// K8) for Hopper (sm_90a).
+// row gather (K9), the two column gathers of the transposed layout (K7, K8)
+// and the fused column gather + stride-1 conv (K10) for Hopper (sm_90a).
 //
 // Built by toda_tpu_torch/ops/_build.py into a shared library with a plain C
 // interface; toda_tpu_torch/ops/gather.py binds it with ctypes. Every launcher
@@ -67,6 +67,27 @@
 // reads of one row fall in a few neighbouring sectors. One kernel serves
 // both (kStacked selects the row order). Bound: bytes (the gathered columns
 // read once, the output written once).
+//
+// K10 gather9_conv_t replaces pallas_gather.py _gather9_conv_kernel (public
+// gather9_conv_t): K7's nine column gathers fused with the stride-1 3x3x3
+// conv of the transposed layout, so the (9W, M) stacked tensor never reaches
+// device memory. out[zo*Cout + co][m] = sum_t sum_dz sum_ci
+// w[dz, t/3, t%3, ci, co] * table[(zo + dz)*C + ci][src(m, t)], where the
+// table (W = (nz+2)*C, N) carries one zero z cell of C rows on each side,
+// src(m, t) = idx[m, t] (-1: a zero column) or, for the identity tap when
+// M == N, m itself. The TPU kernel DMAs span windows of table columns and
+// selects them with one-hot MXU products, then contracts z with a banded
+// (3C, Cout) product per tap in VMEM. Here a block owns 32 output columns
+// and ZT output z cells: per tap it loads its columns' sources once, stages
+// the tap's (ZT+2)*C gathered table rows of those columns (f32) and the tap's
+// (3C, Cout) weights in shared memory, and each thread adds the products
+// into 32 f32 sums held in registers (one column, ZT z cells x Cout/8
+// channels), over all nine taps; the output is written once, rounded to the
+// table's type. Threads of a warp read neighbouring columns of one staged
+// row (no bank conflicts) and the same weight (a broadcast). Bound: bytes at
+// the card's rates (the operations fit the tensor cores' rate several times
+// over); on CUDA cores this first version is bound by its shared-memory
+// reads, about two per product. Tensor cores (mma.sync / wgmma) come later.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -205,6 +226,111 @@ int launch_gather_cols(const void* table, const int32_t* idx, void* out,
   return (int)cudaGetLastError();
 }
 
+constexpr int kConvCols = 32;      // output columns of one K10 block
+constexpr int kConvThreads = 256;  // 8 warps; thread = (channel group, column)
+constexpr int kConvSums = 32;      // f32 sums a thread keeps in registers
+
+// K10. Block (x, y): output columns [32x, 32x + 32), output z [ZT*y, ZT*y +
+// ZT). Thread (grp = tid / 32, col = tid % 32) sums channels grp + 8q,
+// q < Q, for every z of the tile. w9 is (9, 3c, 8Q) f32; the dynamic shared
+// memory holds the tap's weights and its staged rows.
+template <typename T, int Q>
+__global__ void __launch_bounds__(kConvThreads)
+gather9_conv_kernel(const T* __restrict__ table, const int32_t* __restrict__ idx,
+                    const float* __restrict__ w9, T* __restrict__ out, int64_t n,
+                    int64_t m, int nz, int c, int identity) {
+  constexpr int ZT = kConvSums / Q;
+  constexpr int COUT = 8 * Q;
+  extern __shared__ float smem[];
+  float* ws = smem;                  // (3c, COUT) weights of the tap
+  float* gs = smem + 3 * c * COUT;   // ((ZT + 2) * c, kConvCols) staged rows
+  __shared__ int64_t src[kConvCols];
+  const int col = threadIdx.x % kConvCols;
+  const int grp = threadIdx.x / kConvCols;
+  const int64_t m0 = (int64_t)blockIdx.x * kConvCols;
+  const int z0 = blockIdx.y * ZT;
+  const int rows = (ZT + 2) * c;
+  const int64_t table_rows = (int64_t)(nz + 2) * c;
+  float acc[ZT][Q];
+#pragma unroll
+  for (int zl = 0; zl < ZT; ++zl)
+#pragma unroll
+    for (int q = 0; q < Q; ++q) acc[zl][q] = 0.f;
+
+  for (int t = 0; t < 9; ++t) {
+    __syncthreads();  // the previous tap's reads of ws, gs and src are done
+    if (threadIdx.x < kConvCols) {
+      const int64_t mm = m0 + threadIdx.x;
+      int64_t s = -1;
+      if (mm < m) s = t == identity ? mm : (int64_t)idx[mm * 9 + t];
+      src[threadIdx.x] = s;
+    }
+    const float* wt = w9 + (int64_t)t * 3 * c * COUT;
+    for (int i = threadIdx.x; i < 3 * c * COUT; i += kConvThreads) ws[i] = wt[i];
+    __syncthreads();
+    for (int i = threadIdx.x; i < rows * kConvCols; i += kConvThreads) {
+      const int r = i / kConvCols;
+      const int64_t s = src[i % kConvCols];
+      const int64_t gr = (int64_t)z0 * c + r;
+      gs[i] = (s >= 0 && gr < table_rows) ? to_f32(table[gr * n + s]) : 0.f;
+    }
+    __syncthreads();
+    // staged row zl*c + j holds haloed z = z0 + zl + dz, channel ci, for
+    // j = dz*c + ci: the input of output z0 + zl through weight row j
+    for (int j = 0; j < 3 * c; ++j) {
+      float wv[Q];
+#pragma unroll
+      for (int q = 0; q < Q; ++q) wv[q] = ws[j * COUT + grp + 8 * q];
+#pragma unroll
+      for (int zl = 0; zl < ZT; ++zl) {
+        const float g = gs[(zl * c + j) * kConvCols + col];
+#pragma unroll
+        for (int q = 0; q < Q; ++q) acc[zl][q] = fmaf(g, wv[q], acc[zl][q]);
+      }
+    }
+  }
+  const int64_t mm = m0 + col;
+  if (mm >= m) return;
+#pragma unroll
+  for (int zl = 0; zl < ZT; ++zl) {
+    if (z0 + zl >= nz) break;
+#pragma unroll
+    for (int q = 0; q < Q; ++q)
+      out[((int64_t)(z0 + zl) * COUT + grp + 8 * q) * m + mm] = from_f32<T>(acc[zl][q]);
+  }
+}
+
+template <typename T, int Q>
+int launch_gather9_conv(const void* table, const int32_t* idx, const float* w9,
+                        void* out, int64_t n, int64_t m, int nz, int c,
+                        int identity, cudaStream_t stream) {
+  constexpr int ZT = kConvSums / Q;
+  const size_t smem = sizeof(float) * ((size_t)3 * c * 8 * Q + (size_t)(ZT + 2) * c * kConvCols);
+  cudaError_t err = cudaFuncSetAttribute(gather9_conv_kernel<T, Q>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  if (m > 0 && nz > 0) {
+    const dim3 grid((unsigned)((m + kConvCols - 1) / kConvCols), (unsigned)((nz + ZT - 1) / ZT));
+    gather9_conv_kernel<T, Q><<<grid, kConvThreads, smem, stream>>>(
+        (const T*)table, idx, w9, (T*)out, n, m, nz, c, identity);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch_gather9_conv(const void* table, const int32_t* idx, const float* w9,
+                          void* out, int64_t n, int64_t m, int nz, int c, int cout,
+                          int identity, cudaStream_t stream) {
+  switch (cout) {
+    case 8: return launch_gather9_conv<T, 1>(table, idx, w9, out, n, m, nz, c, identity, stream);
+    case 16: return launch_gather9_conv<T, 2>(table, idx, w9, out, n, m, nz, c, identity, stream);
+    case 32: return launch_gather9_conv<T, 4>(table, idx, w9, out, n, m, nz, c, identity, stream);
+    case 64: return launch_gather9_conv<T, 8>(table, idx, w9, out, n, m, nz, c, identity, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 inline unsigned blocks_for(int64_t n) {
   return (unsigned)((n + kThreads - 1) / kThreads);
 }
@@ -305,6 +431,21 @@ int toda_gather9_stacked_t(const void* table, const int32_t* idx, void* out,
                            int chunk, int identity, cudaStream_t stream) {
   return launch_gather_cols<true>(table, idx, out, n, m, 9, w, elem_bytes,
                                   chunk, identity, stream);
+}
+
+// K10. table: (w = (nz+2)*c, n) of dtype (0 = float32, 1 = bfloat16),
+// zero z halo included; idx: (m, 9); w9: (9, 3c, cout) f32, w9[t][dz*c +
+// ci][co] = weights[dz][t/3][t%3][ci][co]; out: (nz*cout, m) in the table's
+// type; cout in {8, 16, 32, 64}; identity: the tap that reads column m
+// itself (-1 for none; the caller passes it only when m == n).
+int toda_gather9_conv_t(const void* table, const int32_t* idx, const float* w9,
+                        void* out, int64_t n, int64_t m, int nz, int c, int cout,
+                        int identity, int dtype, cudaStream_t stream) {
+  if (dtype == 0)
+    return dispatch_gather9_conv<float>(table, idx, w9, out, n, m, nz, c, cout, identity,
+                                        stream);
+  return dispatch_gather9_conv<__nv_bfloat16>(table, idx, w9, out, n, m, nz, c, cout,
+                                              identity, stream);
 }
 
 }  // extern "C"

@@ -1,12 +1,15 @@
-"""Dataset builder and loader.
+"""Dataset builder and loaders.
 
 The port's own copy of the loader in ``toda_tpu/datasets/__init__.py``: a
 host loader with static-shape numpy collation and a background
 thread that prepares the next batches while the device runs. The model entry
 points move the numpy batches to their device. Single process: the
 rank-strided distributed loader comes with the distributed-runtime slice.
+``build_cutmix_dataloader`` and ``build_mixup_dataloader`` are the TODA
+stages' loaders (:175-189).
 """
 
+import pickle
 import queue
 import threading
 
@@ -19,10 +22,11 @@ class DataLoader:
     """Minimal loader over a DatasetTemplate.
 
     Test mode: frames in order, the last batch filled up with the first
-    frames. Training: frames in the permutation of ``RandomState(0)`` (the
-    JAX loader's at seed 0, epoch 0), the last partial batch dropped.
-    prefetch > 0 runs __getitem__ + collate on a background thread with a
-    bounded queue, overlapping host preprocessing with the device step.
+    frames. Training: frames in the permutation of ``RandomState(epoch)``
+    (the JAX loader's at seed 0; ``set_epoch`` moves it on), the last
+    partial batch dropped. prefetch > 0 runs __getitem__ + collate on a
+    background thread with a bounded queue, overlapping host preprocessing
+    with the device step.
     """
 
     def __init__(self, dataset, batch_size, training=False, prefetch=2):
@@ -30,11 +34,15 @@ class DataLoader:
         self.batch_size = batch_size
         self.training = training
         self.prefetch = prefetch
+        self.epoch = 0
+
+    def set_epoch(self, epoch):
+        self.epoch = epoch
 
     def _indices(self):
         n = len(self.dataset)
         if self.training:
-            return np.random.RandomState(0).permutation(n)
+            return np.random.RandomState(self.epoch).permutation(n)
         return np.arange(n)
 
     def __len__(self):
@@ -93,21 +101,45 @@ class DataLoader:
             t.join()
 
 
-def build_dataset(dataset_cfg, class_names, training=False, root_path=None, logger=None):
+def build_dataset(dataset_cfg, class_names, training=False, root_path=None, logger=None,
+                  **kwargs):
     name = dataset_cfg.DATASET
-    if name != "SyntheticDataset":
+    if name == "SyntheticDataset":
+        cls = SyntheticDataset
+    elif name in ("CutMixDataset", "MixUpDataset"):
+        from . import mix_dataset
+
+        cls = getattr(mix_dataset, name)
+    else:
         raise KeyError(f"dataset {name} is not ported to the PyTorch package yet")
-    return SyntheticDataset(dataset_cfg=dataset_cfg, class_names=class_names,
-                            training=training, root_path=root_path, logger=logger)
+    return cls(dataset_cfg=dataset_cfg, class_names=class_names, training=training,
+               root_path=root_path, logger=logger, **kwargs)
 
 
 def build_dataloader(dataset_cfg, class_names, batch_size, dist=False, root_path=None,
-                     workers=0, logger=None, training=False):
+                     workers=0, logger=None, training=False, **dataset_kwargs):
     """Returns (dataset, dataloader, sampler_like) like ``toda_tpu``'s
-    (training: shuffled, last partial batch dropped)."""
+    (training: shuffled, last partial batch dropped). ``dataset_kwargs``
+    go to the dataset (``pseudo_infos`` of a MixUpDataset)."""
     if dist:
         raise NotImplementedError("the distributed loader is not ported yet")
-    dataset = build_dataset(dataset_cfg, class_names, training, root_path, logger)
+    dataset = build_dataset(dataset_cfg, class_names, training, root_path, logger,
+                            **dataset_kwargs)
     loader = DataLoader(dataset, batch_size=batch_size, training=training,
                         prefetch=workers if workers > 0 else 2)
     return dataset, loader, loader
+
+
+def build_cutmix_dataloader(dataset_cfg, class_names, batch_size, **kwargs):
+    """The stage-1 loader: a CutMixDataset config's."""
+    return build_dataloader(dataset_cfg, class_names, batch_size, **kwargs)
+
+
+def build_mixup_dataloader(dataset_cfg, class_names, batch_size, pseudo_infos=None, **kwargs):
+    """The stage-2 loader: a MixUpDataset config's, over ``pseudo_infos``
+    (a list, or the path of its pickle)."""
+    if isinstance(pseudo_infos, (str, bytes)):
+        with open(pseudo_infos, "rb") as f:
+            pseudo_infos = pickle.load(f)
+    return build_dataloader(dataset_cfg, class_names, batch_size, pseudo_infos=pseudo_infos,
+                            **kwargs)

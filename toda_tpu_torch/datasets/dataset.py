@@ -2,10 +2,11 @@
 
 The port's own copy of ``toda_tpu/datasets/dataset.py`` (``prepare_data``,
 ``pad_to_static``, ``collate_batch``,
-``generate_prediction_dicts``): (training: augment) -> class filter -> point
-encoding -> processors -> (training: resample a frame left without boxes) ->
-pad to static caps (points -> NUM_POINTS, gt_boxes -> MAX_GT_BOXES) with
-validity masks -> dense (B, ...) batches.
+``generate_prediction_dicts``, ``aug_vector``): (training: augment) -> class
+filter -> point encoding -> processors -> (training: resample a frame left
+without boxes) -> pad to static caps (points -> NUM_POINTS, gt_boxes ->
+MAX_GT_BOXES) with validity masks, and the recorded world augmentations as
+a fixed (7,) ``aug_vector`` -> dense (B, ...) batches.
 """
 
 import numpy as np
@@ -46,6 +47,9 @@ class DatasetTemplate:
             dataset_cfg.get("MAX_POINTS", 65536)
         )
         self.max_gt_boxes = int(dataset_cfg.get("MAX_GT_BOXES", 128))
+        # the position in the training run, in [0, 1]: the train loop sets it
+        # every step, the stage-1 mixers' curriculum reads it
+        self.train_percent = 0.0
 
     @property
     def mode(self):
@@ -92,6 +96,25 @@ class DatasetTemplate:
         self._empty_resamples = 0
         return self.pad_to_static(data_dict)
 
+    @staticmethod
+    def aug_vector(aug_params):
+        """The recorded world augmentations as a fixed (7,) f32 vector
+        [flip_x, flip_y, rot, scale, tx, ty, tz] (identity: zeros, scale
+        1), which the stage-2 consistency loss reverses on the device."""
+        vec = np.array([0, 0, 0, 1, 0, 0, 0], dtype=np.float32)
+        for name, p in aug_params or []:
+            if name == "random_world_flip_x":
+                vec[0] = float(bool(p))
+            elif name == "random_world_flip_y":
+                vec[1] = float(bool(p))
+            elif name == "random_world_rotation":
+                vec[2] = float(p)
+            elif name == "random_world_scaling":
+                vec[3] = float(p)
+            elif name == "random_world_translation":
+                vec[4:7] = np.asarray(p, dtype=np.float32)
+        return vec
+
     def pad_to_static(self, data_dict):
         points = np.asarray(data_dict["points"], dtype=np.float32)
         n = len(points)
@@ -103,6 +126,8 @@ class DatasetTemplate:
             data_dict["gt_boxes"] = common_utils.pad_to(
                 np.asarray(data_dict["gt_boxes"], dtype=np.float32), self.max_gt_boxes
             )
+        if "augmentation_params" in data_dict:
+            data_dict["aug_vector"] = self.aug_vector(data_dict["augmentation_params"])
         data_dict.pop("gt_names", None)
         data_dict.pop("use_lead_xyz", None)
         data_dict.pop("replay_params", None)

@@ -181,7 +181,7 @@ class DetectorBundle:
         """Model inputs (and ``gt_boxes`` when the batch has them) of a batch
         of numpy arrays or tensors, as tensors on the bundle's device."""
         dtypes = {"points": torch.float32, "points_mask": torch.bool,
-                  "gt_boxes": torch.float32}
+                  "gt_boxes": torch.float32, "aug_vector": torch.float32}
         return {k: torch.as_tensor(batch[k], dtype=dt, device=self.device)
                 for k, dt in dtypes.items() if k in batch}
 
@@ -196,12 +196,15 @@ class DetectorBundle:
         return anchor_head_loss(out, self.assigner.assign(gt_boxes),
                                 self.model_cfg["DENSE_HEAD"], self.num_class)
 
-    def loss(self, batch_dict):
-        """Forward in training mode (batch statistics; BatchNorm running
-        statistics updated) and the loss: (total, tb dict of scalar
-        tensors). Differentiable in the module's parameters."""
-        if not self.module.training:
-            self.module.train()
+    def loss(self, batch_dict, training=True):
+        """Forward and the loss: (total, tb dict of scalar tensors),
+        differentiable in the module's parameters and in the points. In
+        training mode BatchNorm normalises by the batch statistics and
+        updates its running statistics; with ``training=False`` (the
+        pseudo-label perturbation, JAX's ``loss(..., training=False,
+        mutable=())``) it runs in eval mode on the running statistics and
+        updates nothing."""
+        self.module.train(training)
         out = self.module(batch_dict)
         return self.head_loss(out, batch_dict["gt_boxes"])
 
@@ -264,17 +267,17 @@ class DetectorBundle:
 
     def decode_topk(self, out, k=32):
         """(B, k) best decoded boxes (7 values) and their sigmoid scores, no
-        NMS (:646-659): TODA's stage-2 consistency matching reads them. An
-        anchor head ranks every anchor (the first stage, also of a two-stage
+        NMS (:646-659): TODA's stage-2 consistency matching reads them, and
+        its loss is differentiated through them into the head. An anchor
+        head ranks every anchor (the first stage, also of a two-stage
         detector); the CenterHead its top-K."""
-        with torch.inference_mode():
-            if self.dense_head_name == "AnchorHeadSingle":
-                boxes, scores, _ = self._anchor_decode(out)
-            else:
-                boxes, scores, _ = self.decode(out)
-            top, idx = top_k(scores, min(k, scores.shape[-1]))
-            boxes = torch.gather(boxes, 1, idx[..., None].expand(-1, -1, boxes.shape[-1]))
-            return boxes[..., :7], top
+        if self.dense_head_name == "AnchorHeadSingle":
+            boxes, scores, _ = self._anchor_decode(out)
+        else:
+            boxes, scores, _ = self.decode(out)
+        top, idx = top_k(scores, min(k, scores.shape[-1]))
+        boxes = torch.gather(boxes, 1, idx[..., None].expand(-1, -1, boxes.shape[-1]))
+        return boxes[..., :7], top
 
 
 def build_detector(model_cfg, num_class, dataset, device, seed=0):

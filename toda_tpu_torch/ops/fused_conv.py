@@ -25,10 +25,13 @@ _SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
 _geometry = None
 _bwd_geometry = None
 DW_TILES = 132  # fixed row tiles of the dW kernel (one per H100 SM)
-# kernel launches per wrapper; "fused_bnconv9_dw_raw" counts the dW launches
-# with act=False (K3's function: a raw-input layer)
+# kernel launches per wrapper; the "_raw" keys count the launches with
+# act=False, whose input is a raw tensor: the first conv's (the voxelizer's
+# means) and the down convs' (a residual join's applied output). dW there is
+# K3's function; the first conv's dx is JAX's split backward, which only an
+# input gradient (the pseudo-label perturbation) runs
 LAUNCHES = {"fused_bnconv9": 0, "fused_bnconv9_bwd_dx": 0, "fused_bnconv9_dw": 0,
-            "fused_bnconv9_dw_raw": 0}
+            "fused_bnconv9_dw_raw": 0, "fused_bnconv9_bwd_dx_raw": 0}
 
 
 def _lib():
@@ -225,6 +228,7 @@ def fused_bnconv9_bwd_dx(x, scale, shift, weights, invf, gy, z_stride=1, act=Tru
     _build.check(err, "fused_bnconv9_bwd_dx")
     LAUNCHES["fused_bnconv9_bwd_dx"] += 1
     if not act:
+        LAUNCHES["fused_bnconv9_bwd_dx_raw"] += 1
         zeros = torch.zeros(c, dtype=torch.float32, device=x.device)
         return dx, zeros, zeros.clone()
     sums = part.sum(1)  # the per-block channel sums, added in a fixed order

@@ -1,18 +1,23 @@
 """Row scatter-add (kernel K4), the voxelizer unpack (kernel K5), the row
-gather (kernel K6), the multi-tap row gather (kernel K9) and the column
-gathers of the transposed layout (kernels K7 and K8).
+gather (kernel K6), the multi-tap row gather (kernel K9), the column
+gathers of the transposed layout (kernels K7 and K8) and the fused column
+gather + stride-1 conv (kernel K10).
 
 Counterparts of ``toda_tpu/ops/pallas_gather.py``: ``scatter_rows_add``
 (:1143, TPU kernel ``_scatter_kernel`` :925), ``unpack_pillars_t`` (:1251,
 TPU kernel ``_unpack_kernel`` :1200), ``gather_rows`` (:1121, TPU kernel
 ``_gather_kernel`` :97), ``gather_rows_taps`` (:301, TPU kernel
 ``_gather_taps_kernel`` :201), ``gather_rows_taps_t`` (:479, TPU kernel
-``_gather_taps_t_kernel`` :354) and ``gather9_stacked_t`` (:682, TPU kernel
-``_gather9_stacked_kernel`` :514). The CUDA kernels are in
+``_gather_taps_t_kernel`` :354), ``gather9_stacked_t`` (:682, TPU kernel
+``_gather9_stacked_kernel`` :514) and ``gather9_conv_t`` (:856, TPU kernel
+``_gather9_conv_kernel`` :729). The CUDA kernels are in
 ``toda_tpu_torch/csrc/gather.cu``; its header says what bounds each one on the
 H100 and why it is built as it is. Each wrapper runs its plain PyTorch version
 for a tensor on the CPU, launches its kernel for a CUDA tensor, and counts its
-launches in ``LAUNCHES[<wrapper name>]``.
+launches in ``LAUNCHES[<wrapper name>]``. ``scatter_rows_add`` and
+``unpack_pillars`` are differentiable, so a gradient with respect to the
+points reaches through the voxelizer: K4's backward is K6 of the cotangent,
+K5's the VJP of its plain version.
 """
 
 import ctypes
@@ -24,7 +29,9 @@ from . import _build
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _bound = False
 LAUNCHES = {"scatter_rows_add": 0, "unpack_pillars": 0, "gather_rows": 0,
-            "gather_rows_taps": 0, "gather_rows_taps_t": 0, "gather9_stacked_t": 0}
+            "gather_rows_taps": 0, "gather_rows_taps_t": 0, "gather9_stacked_t": 0,
+            "gather9_conv_t": 0}
+_SMEM_LIMIT = 232448 - 256  # bytes of shared memory one H100 block may use, less K10's static
 
 
 def _lib():
@@ -44,6 +51,8 @@ def _lib():
         lib.toda_gather_rows_taps_t.restype = i32
         lib.toda_gather9_stacked_t.argtypes = [p, p, p, i64, i64, i32, i32, i32, i32, p]
         lib.toda_gather9_stacked_t.restype = i32
+        lib.toda_gather9_conv_t.argtypes = [p, p, p, p, i64, i64, i32, i32, i32, i32, i32, p]
+        lib.toda_gather9_conv_t.restype = i32
         _bound = True
     return lib
 
@@ -74,18 +83,8 @@ def scatter_rows_add_plain(g, idx, n):
     return out[:n]
 
 
-def scatter_rows_add(g, idx, n):
-    """out[j] = sum of g[i] over the rows i with idx[i] == j, in f32.
-
-    Args:
-        g: (M, W) float32 or bfloat16, contiguous.
-        idx: (M,) int32 in [-1, n); -1 rows are dropped. Rows with the same
-            valid idx should be adjacent (the callers' indices are
-            nondecreasing): each such run is summed in row order, so the
-            result is then deterministic.
-        n: output rows.
-    Returns (n, W) float32.
-    """
+def _scatter_rows_add(g, idx, n):
+    """K4 without autograd (see ``scatter_rows_add``)."""
     if g.device.type == "cpu":
         return scatter_rows_add_plain(g, idx, n)
     if not g.is_cuda or g.dtype not in _DTYPE_CODE or g.dim() != 2 or not g.is_contiguous():
@@ -104,6 +103,41 @@ def scatter_rows_add(g, idx, n):
     return out
 
 
+class _ScatterRowsAdd(torch.autograd.Function):
+    """K4 forward, its f32 sums rounded to ``out_dtype``; backward, its
+    exact VJP: K6 (``gather_rows``) of the output cotangent by the same idx,
+    a zero row where idx is -1, as JAX's gather / scatter pair
+    (``pallas_gather.py:1104-1118``)."""
+
+    @staticmethod
+    def forward(ctx, g, idx, n, out_dtype):
+        ctx.save_for_backward(idx)
+        ctx.dtype = g.dtype
+        return _scatter_rows_add(g, idx, n).to(out_dtype)
+
+    @staticmethod
+    def backward(ctx, gout):
+        (idx,) = ctx.saved_tensors
+        return gather_rows(gout.contiguous(), idx).to(ctx.dtype), None, None, None
+
+
+def scatter_rows_add(g, idx, n, out_dtype=torch.float32):
+    """out[j] = sum of g[i] over the rows i with idx[i] == j, in f32.
+
+    Args:
+        g: (M, W) float32 or bfloat16, contiguous.
+        idx: (M,) int32 in [-1, n); -1 rows are dropped. Rows with the same
+            valid idx should be adjacent (the callers' indices are
+            nondecreasing): each such run is summed in row order, so the
+            result is then deterministic.
+        n: output rows.
+        out_dtype: the sums are rounded to it (the voxelizer keeps f32, the
+            dense scatter the rows' type).
+    Returns (n, W) in ``out_dtype``. Differentiable in g: the backward is one
+    K6 gather of the output cotangent.
+    """
+    return _ScatterRowsAdd.apply(g, idx, n, out_dtype)
+
 
 def unpack_pillars_plain(sums, c, cpad, dtype):
     """Plain PyTorch K5: (ncell, c+1) f32 [sums, count] -> (ncell, cpad) means."""
@@ -113,16 +147,8 @@ def unpack_pillars_plain(sums, c, cpad, dtype):
     return out
 
 
-def unpack_pillars(sums, c, cpad, dtype):
-    """Per-cell mean features from the voxelizer's cell sums.
-
-    Args:
-        sums: (ncell, c+1) float32, contiguous: c feature sums, then the
-            point count of each cell.
-        c: features per point; cpad >= c: output channels (zeros past c).
-        dtype: float32 or bfloat16 output.
-    Returns (ncell, cpad) ``dtype(sum / max(round(count), 1))``.
-    """
+def _unpack_pillars(sums, c, cpad, dtype):
+    """K5 without autograd (see ``unpack_pillars``)."""
     if sums.device.type == "cpu":
         return unpack_pillars_plain(sums, c, cpad, dtype)
     if not sums.is_cuda or sums.dtype != torch.float32 or sums.dim() != 2 \
@@ -138,6 +164,41 @@ def unpack_pillars(sums, c, cpad, dtype):
     _build.check(err, "unpack_pillars")
     LAUNCHES["unpack_pillars"] += 1
     return out
+
+
+class _UnpackPillars(torch.autograd.Function):
+    """K5 forward; backward, the VJP of its plain version (no kernel, as in
+    JAX, ``pallas_gather.py:1291-1296``): the feature sums get the output
+    cotangent over the rounded count, the count column none."""
+
+    @staticmethod
+    def forward(ctx, sums, c, cpad, dtype):
+        ctx.save_for_backward(sums)
+        ctx.c = c
+        return _unpack_pillars(sums, c, cpad, dtype)
+
+    @staticmethod
+    def backward(ctx, gy):
+        (sums,) = ctx.saved_tensors
+        c = ctx.c
+        cnt = torch.clamp(torch.round(sums[:, c]), min=1.0)
+        gs = torch.zeros_like(sums)
+        gs[:, :c] = gy[:, :c].float() / cnt[:, None]
+        return gs, None, None, None
+
+
+def unpack_pillars(sums, c, cpad, dtype):
+    """Per-cell mean features from the voxelizer's cell sums.
+
+    Args:
+        sums: (ncell, c+1) float32, contiguous: c feature sums, then the
+            point count of each cell.
+        c: features per point; cpad >= c: output channels (zeros past c).
+        dtype: float32 or bfloat16 output.
+    Returns (ncell, cpad) ``dtype(sum / max(round(count), 1))``.
+    Differentiable in the sums.
+    """
+    return _UnpackPillars.apply(sums, c, cpad, dtype)
 
 
 
@@ -295,4 +356,67 @@ def gather9_stacked_t(tableT, idx, chunk=None, identity_tap=None):
                                         -1 if it is None else it, _stream(tableT))
     _build.check(err, "gather9_stacked_t")
     LAUNCHES["gather9_stacked_t"] += 1
+    return out
+
+
+def gather9_conv_t_plain(tableT, idx, weights, nz, identity_tap=None):
+    """Plain PyTorch K10: K7's plain gather, then the z product of
+    ``pillar_conv3d_t``'s forward in f32, rounded once to the table's type."""
+    from .pillar_sparse import _taps_weights, _zconv_t
+
+    w, m = tableT.shape[0], idx.shape[0]
+    c = w // (nz + 2)
+    g = gather9_stacked_t_plain(tableT, idx, identity_tap=identity_tap).view(9, w, m)
+    acc = _zconv_t(g.float(), _taps_weights(weights.float()), c, 1)
+    return acc.to(tableT.dtype).reshape(-1, m)
+
+
+def gather9_conv_t(tableT, idx, weights, nz, identity_tap=None):
+    """Fused 9-tap column gather + 3x3x3 z-stride-1 conv, transposed layout:
+
+        out[zo*Cout + co, m] = sum_{t, dz, ci} weights[dz, t // 3, t % 3, ci, co]
+                               * tableT[(zo + dz)*C + ci, src(m, t)]
+
+    src(m, t) = idx[m, t], a zero column where -1; with ``identity_tap`` and
+    M == N, that tap reads column m itself, as the TPU kernel does. Sums
+    are f32; the output is rounded to the table's type once.
+
+    Args:
+        tableT: (W, N) float32 or bfloat16, contiguous, W = (nz+2)*C: the
+            activations with one zero z cell of C rows on each side.
+        idx: (M, 9) int32 in [-1, N), contiguous.
+        weights: (3, 3, 3, C, Cout) in (dz, dy, dx) order, the table's type;
+            C % 8 == 0 and Cout in {8, 16, 32, 64}.
+        nz: output z cells (the input's, stride 1).
+    Returns (nz*Cout, M) in the table's type, unmasked.
+    """
+    if tableT.device.type == "cpu":
+        return gather9_conv_t_plain(tableT, idx, weights, nz, identity_tap)
+    _check_table(tableT, "gather9_conv_t")
+    _check_idx(idx, tableT, (9,), "gather9_conv_t")
+    w, n = tableT.shape
+    m = idx.shape[0]
+    c, cout = w // (nz + 2), weights.shape[-1]
+    if w != (nz + 2) * c or c % 8 or cout not in (8, 16, 32, 64) \
+            or weights.shape != (3, 3, 3, c, cout) or weights.dtype != tableT.dtype \
+            or weights.device != tableT.device:
+        raise ValueError(f"gather9_conv_t: needs W = (nz+2)*C with C % 8 == 0, weights "
+                         f"(3, 3, 3, C, Cout) in the table's type with Cout in (8, 16, 32, "
+                         f"64); got W {w}, nz {nz}, weights {weights.dtype} "
+                         f"{tuple(weights.shape)}")
+    zt = 32 // (cout // 8)
+    smem = 4 * (3 * c * cout + (zt + 2) * c * 32)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"gather9_conv_t: C={c}, Cout={cout} needs {smem} bytes of shared "
+                         "memory per block")
+    it = _stacked_identity(identity_tap, m, n)
+    # (9, 3C, Cout) f32: w9[t][dz*C + ci] = weights[dz, t // 3, t % 3, ci]
+    w9 = weights.float().permute(1, 2, 0, 3, 4).reshape(9, 3 * c, cout).contiguous()
+    out = torch.empty((nz * cout, m), dtype=tableT.dtype, device=tableT.device)
+    err = _lib().toda_gather9_conv_t(tableT.data_ptr(), idx.data_ptr(), w9.data_ptr(),
+                                     out.data_ptr(), n, m, nz, c, cout,
+                                     -1 if it is None else it, _DTYPE_CODE[tableT.dtype],
+                                     _stream(tableT))
+    _build.check(err, "gather9_conv_t")
+    LAUNCHES["gather9_conv_t"] += 1
     return out

@@ -12,8 +12,10 @@ fallback, a TPU workaround for slow gathers; the tables are exact lookups of
 a BEV key among the sorted keys, which ``torch.searchsorted`` does directly.
 The voxelizer takes the plain f32 mean path of ``voxelize_pillars_batched``
 (:236-246); its per-cell sums are kernel K4 and its unpack kernel K5
-(``ops/gather.py``). The dense scatter is K4 forward and its exact VJP, the
-row gather K6, backward. The row-major 3x3x3 conv ``pillar_conv3d``
+(``ops/gather.py``), both differentiable, so the voxelizer is
+differentiable in the points (the pseudo-label perturbation). The dense
+scatter is K4 forward and its exact VJP, the row gather K6, backward. The
+row-major 3x3x3 conv ``pillar_conv3d``
 gathers its taps with K9 and contracts z with a plain product; its
 transposed counterpart ``pillar_inv_conv3d`` gathers with K6. The conv of
 the transposed layout, ``pillar_conv3d_t`` (activations (nz*C, M), one
@@ -210,22 +212,6 @@ def fold_idx(idx, p_in):
     return torch.where(idx >= 0, idx + offs, -1).reshape(bt * idx.shape[1], idx.shape[2])
 
 
-class _DenseScatter(torch.autograd.Function):
-    """(M, W) rows -> (n, W) table by unique row keys (-1 dropped), in the
-    rows' dtype: K4 forward, the K6 row gather backward
-    (``_dense_scatter_diff`` :778-796)."""
-
-    @staticmethod
-    def forward(ctx, rows, flat, n):
-        ctx.save_for_backward(flat)
-        return scatter_rows_add(rows, flat, n).to(rows.dtype)
-
-    @staticmethod
-    def backward(ctx, gbar):
-        (flat,) = ctx.saved_tensors
-        return gather_rows(gbar.contiguous(), flat), None, None
-
-
 def pillars_to_dense_batched(features, coords, mask, bev_shape):
     """(B, P, nz, C) -> (B, ny, nx, nz, C) dense, by one K4 scatter (:799).
     Keys are unique and ascending per sample, so each dense row gets at most
@@ -236,7 +222,7 @@ def pillars_to_dense_batched(features, coords, mask, bev_shape):
     flat = torch.where(mask & (coords[..., 0] >= 0),
                        coords[..., 0].to(torch.int64) * nx + coords[..., 1] + offs, -1)
     rows, flat = features.reshape(bt * p, nz * c).contiguous(), flat.to(torch.int32).reshape(-1)
-    dense = _DenseScatter.apply(rows, flat, bt * ny * nx)
+    dense = scatter_rows_add(rows, flat, bt * ny * nx, out_dtype=rows.dtype)
     return dense.reshape(bt, ny, nx, nz, c)
 
 

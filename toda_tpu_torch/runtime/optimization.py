@@ -106,6 +106,16 @@ class AdamW:
         self.nu = [torch.zeros_like(p) for p in self.params]
         self.count = 0  # steps taken, on the host
 
+    def state_dict(self):
+        """The moments and the step count (a checkpoint's optimizer part)."""
+        return {"mu": list(self.mu), "nu": list(self.nu), "count": self.count}
+
+    @torch.no_grad()
+    def load_state_dict(self, sd):
+        for dst, src in zip(self.mu + self.nu, list(sd["mu"]) + list(sd["nu"])):
+            dst.copy_(src)
+        self.count = int(sd["count"])
+
     @torch.no_grad()
     def step(self):
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]

@@ -1,14 +1,17 @@
-"""The training step: voxelize + forward + loss + backward + clip + AdamW +
-BatchNorm running statistics, on the device.
+"""The training step (voxelize + forward + loss + backward + clip + AdamW +
+BatchNorm running statistics, on the device) and the epoch loop.
 
 Counterpart of ``toda_tpu/runtime/train_utils.py`` (``select_batch_arrays``,
-``create_train_state``, ``make_train_step`` :31-83). JAX's step is one jitted
-pure function of the state; here one call runs the same work eagerly and
-updates the module's parameters, BatchNorm buffers and the optimizer state
-in place. The epoch loop (``train_model``) and checkpoints come with a
-later slice.
+``create_train_state``, ``make_train_step`` :31-83, ``train_model``
+:86-180). JAX's step is one jitted pure function of the state; here one call
+runs the same work eagerly and updates the module's parameters, BatchNorm
+buffers and the optimizer state in place. ``train_model`` runs in one
+process: the device mesh, the cross-rank checksum, the timing log and the
+save-interval and keep-count settings come with the distributed runtime and
+the CLIs.
 """
 
+from . import checkpoint as ckpt_lib
 from .optimization import build_optimizer
 
 ARRAY_KEYS = ("points", "points_mask", "gt_boxes")
@@ -44,3 +47,27 @@ def make_train_step(bundle):
         return state, tb
 
     return train_step
+
+
+def train_model(bundle, state, train_loader, start_epoch, total_epochs, ckpt_save_dir,
+                hooks=()):
+    """The epoch loop (``train_model`` :86-180): each epoch sets the loader's
+    epoch, runs ``make_train_step`` over it and saves a checkpoint
+    (``checkpoint.save_checkpoint``). Before each batch is drawn the
+    dataset's ``train_percent`` (the stage-1 mixers' curriculum) is set to
+    the fraction of the run's steps taken, as in JAX. Each hook is called as
+    ``hook(state, batch, tb, step)`` after a step. Returns the state."""
+    train_step = make_train_step(bundle)
+    accumulated_iter = state.count
+    run_its = max(len(train_loader) * total_epochs, 1)
+    for cur_epoch in range(start_epoch, total_epochs):
+        train_loader.set_epoch(cur_epoch)
+        train_loader.dataset.train_percent = accumulated_iter / run_its
+        for batch in train_loader:
+            train_loader.dataset.train_percent = (accumulated_iter + 1) / run_its
+            state, tb = train_step(state, batch)
+            for hook in hooks:
+                hook(state, batch, tb, accumulated_iter)
+            accumulated_iter += 1
+        ckpt_lib.save_checkpoint(ckpt_save_dir, bundle, state, epoch=cur_epoch + 1)
+    return state

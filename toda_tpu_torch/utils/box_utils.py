@@ -1,7 +1,8 @@
 """Host-side (numpy) 3D box geometry.
 
 The port's own copy of the parts of ``toda_tpu/utils/box_utils.py`` that the
-synthetic scenes, the training data path, recall and mAP use. Box convention:
+synthetic scenes, the training data path, the TODA mixers, recall and mAP
+use. Box convention:
 ``(x, y, z, dx, dy, dz, heading[, ...])``, (x, y, z) the box centre, heading
 the yaw around +z (counter-clockwise, 0 = +x axis).
 """
@@ -30,6 +31,32 @@ def mask_boxes_outside_range_numpy(boxes, limit_range, min_num_corners=1):
     corners = boxes_to_corners_3d(boxes)
     mask = ((corners >= limit_range[0:3]) & (corners <= limit_range[3:6])).all(axis=2)
     return mask.sum(axis=1) >= min_num_corners
+
+
+def points_in_boxes_numpy(points, boxes):
+    """(P, 3+) points x (M, 7+) boxes -> (M, P) bool membership (the box's
+    local frame, boundaries included)."""
+    points = np.asarray(points)[:, :3]
+    boxes = np.asarray(boxes)
+    if len(boxes) == 0 or len(points) == 0:
+        return np.zeros((len(boxes), len(points)), dtype=bool)
+    shifted = points[None, :, :] - boxes[:, None, 0:3]  # (M, P, 3)
+    cosa = np.cos(-boxes[:, 6])[:, None]
+    sina = np.sin(-boxes[:, 6])[:, None]
+    local_x = shifted[..., 0] * cosa - shifted[..., 1] * sina
+    local_y = shifted[..., 0] * sina + shifted[..., 1] * cosa
+    return (
+        (np.abs(local_x) <= boxes[:, None, 3] / 2.0)
+        & (np.abs(local_y) <= boxes[:, None, 4] / 2.0)
+        & (np.abs(shifted[..., 2]) <= boxes[:, None, 5] / 2.0)
+    )
+
+
+def remove_points_in_boxes3d(points, boxes3d):
+    """The points outside every box."""
+    if len(boxes3d) == 0:
+        return points
+    return points[~points_in_boxes_numpy(points, boxes3d).any(axis=0)]
 
 
 def corners_bev(boxes):
