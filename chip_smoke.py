@@ -24,7 +24,12 @@ Phases (none catches its own failure; any failure exits non-zero):
   8. full-width training (batch 4, augmentor on): one recorded train step
      feeds each backward kernel's inputs (K2's dx and dW on every layer, K3:
      dW of the four raw-input layers, K6) to it and to its plain version; a
-     second dW run must be bit-equal to the first;
+     second dW run must be bit-equal to the first; every K1, dx and dW call
+     logs its share of present (pillar, tap) pairs; then K1, dx and dW on
+     stress tables no scene gives (``phase_stress_tables``: dense planes
+     with every tap present, pillars with no taps, lone pillars, an odd M,
+     the first conv's C = 8 raw, both strides) at stage-1 and stage-3
+     widths, held to the same tolerances;
   9. with every launch counter at 0, 20 ``make_train_step`` steps: launches
      per step asserted, losses finite; then the steady train throughput
      (loss read back every step) and peak memory;
@@ -37,7 +42,9 @@ Phases (none catches its own failure; any failure exits non-zero):
      checkpoint round trip, ``generate_pseudo_labels`` with the perturbation
      (the first conv's act=False dx and K4's VJP, a K6 gather, held against
      their plain versions), stage-2 ``make_train_step_cl`` steps; launches
-     per step asserted, scans/s, peak memory, profiles;
+     per step asserted, scans/s, peak memory, profiles; then two stage-2
+     steps on the pseudo labels taken at score 0 (box-bearing frames, the
+     consistency matched at score 0): both consistency terms nonzero;
  13. tiny PartA2 in f32 on cuda and on cpu with the same weights and batch:
      the point and dense head outputs must agree, and the RoI head on the
      cpu's RoIs; once in full f32 and once with cuDNN's TF32 on, the
@@ -512,9 +519,22 @@ def dx_tolerance(x, scale, w, invf, gy, z_stride, act, ref):
     return 2.0 ** -7 * ref.float().abs() + 2.0 ** -12 * mag
 
 
-def bound_ms(nbytes, flops, peak_flops):
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / peak_flops
+def bound_ms(nbytes, flops, peak):
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / peak
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def peak_flops(x):
+    import torch
+
+    return H100_BF16_FLOPS if x.dtype == torch.bfloat16 else H100_F32_FLOPS
+
+
+def conv_bound(work, x):
+    """(bound, the operations alone in ms) of a fused-conv call's
+    (bytes, flops) at x's dtype's peak."""
+    nbytes, flops = work
+    return dict(bound=bound_ms(nbytes, flops, peak_flops(x)), ops_ms=1e3 * flops / peak_flops(x))
 
 
 def phase_kernels(bundle, batch):
@@ -534,22 +554,7 @@ def phase_kernels(bundle, batch):
     assert len(k1.calls) == 11 and len(k4.calls) == 2 and len(k5.calls) == 1, \
         (len(k1.calls), len(k4.calls), len(k5.calls))
 
-    rows = {"K1": [], "K4": [], "K5": []}
-    for (x, sc, sh, w, idx, s, act), _ in k1.calls:
-        y = fused_conv.fused_bnconv9(x, sc, sh, w, idx, s, act)
-        ref = fused_conv.fused_bnconv9_plain(x, sc, sh, w, idx, s, act)
-        err = (y.float() - ref.float()).abs()
-        tol = 2.0 ** -7  # two bf16 ulps: sum order differs, output rounds to bf16
-        assert bool((err <= tol + tol * ref.float().abs()).all()), \
-            f"K1 {tuple(x.shape)}->{tuple(y.shape)}: max err {err.max().item()}"
-        nbytes, flops = k1_work(x, w, idx, s)
-        peak = H100_BF16_FLOPS if x.dtype == torch.bfloat16 else H100_F32_FLOPS
-        rows["K1"].append(dict(
-            shape=f"x{tuple(x.shape)} s{s} act{int(act)} -> y{tuple(y.shape)}",
-            err=err.max().item(), tol=f"{tol:g} abs + rel",
-            ms=cuda_ms(lambda: fused_conv.fused_bnconv9(x, sc, sh, w, idx, s, act), 10),
-            plain_ms=cuda_ms(lambda: fused_conv.fused_bnconv9_plain(x, sc, sh, w, idx, s, act), 3),
-            library_ms=None, bound=bound_ms(nbytes, flops, peak)))
+    rows = {"K1": [check_k1_call(*args) for args, _ in k1.calls], "K4": [], "K5": []}
     for (g, idx, n), _ in k4.calls:
         y = gather.scatter_rows_add(g, idx, n)
         ref = gather.scatter_rows_add_plain(g, idx, n)
@@ -587,78 +592,194 @@ def log_rows(rows):
     for name, rs in rows.items():
         for r in rs:
             lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+            plain = "-" if r["plain_ms"] is None else f"{r['plain_ms']:.4f}"
+            share = "" if "share" not in r else \
+                f", ops_ms {r['ops_ms']:.4f}, present pairs {r['share']:.4f}"
             log(f"  {name} {r['shape']}: max_abs_err {r['err']:.3g} (tol {r['tol']}), "
-                f"ms {r['ms']:.4f}, plain_ms {r['plain_ms']:.4f}, library_ms {lib}, "
-                f"bound_ms {r['bound'][0]:.4f} ({r['bound'][1]})")
+                f"ms {r['ms']:.4f}, plain_ms {plain}, library_ms {lib}, "
+                f"bound_ms {r['bound'][0]:.4f} ({r['bound'][1]}){share}")
 
 
-def check_train_kernels(dx_calls, dw_calls, gather_calls):
-    """Hold each recorded backward call's kernel against its plain version
-    (K6 exactly, ``check_gathers``) and time both; returns the K2, K3 and
-    K6 rows."""
+def pair_share(table):
+    """The share of a (M, 9) tap table's (pillar, tap) pairs that are
+    present: what the kernels' bounds count."""
+    import torch
+
+    return int(torch.count_nonzero(table >= 0).item()) / max(1, table.numel())
+
+
+def check_k1_call(x, sc, sh, w, idx, s, act, plain=True):
+    """Hold one K1 call against its plain version (two bf16 ulps abs + rel:
+    the sum order differs and the output rounds to bf16) and time it (and
+    its plain version unless ``plain`` is False); returns its row."""
+    from toda_tpu_torch.ops import fused_conv
+
+    y = fused_conv.fused_bnconv9(x, sc, sh, w, idx, s, act)
+    ref = fused_conv.fused_bnconv9_plain(x, sc, sh, w, idx, s, act)
+    err = (y.float() - ref.float()).abs()
+    tol = 2.0 ** -7
+    assert bool((err <= tol + tol * ref.float().abs()).all()), \
+        f"K1 {tuple(x.shape)}->{tuple(y.shape)}: max err {err.max().item()}"
+    del ref
+    return dict(
+        shape=f"x{tuple(x.shape)} s{s} act{int(act)} -> y{tuple(y.shape)}",
+        err=err.max().item(), tol=f"{tol:g} abs + rel", share=pair_share(idx),
+        ms=cuda_ms(lambda: fused_conv.fused_bnconv9(x, sc, sh, w, idx, s, act), 10),
+        plain_ms=cuda_ms(lambda: fused_conv.fused_bnconv9_plain(x, sc, sh, w, idx, s, act), 3)
+        if plain else None,
+        library_ms=None, **conv_bound(k1_work(x, w, idx, s), x))
+
+
+def check_dx_call(x, sc, sh, w, invf, gy, s, act, plain=True):
+    """Hold one dx call against its plain version (``dx_tolerance``; the
+    check must fail the plain dx with the centre inverse tap dropped and an
+    all-zero dx), its dscale / dshift within 3e-5 of the sum of their
+    terms' magnitudes (f32 channel sums over ~10^8 rows in another order;
+    cancellation leaves the sums themselves far smaller), and time it."""
     import torch
 
     from toda_tpu_torch.ops import fused_conv
 
-    rows = {"K2": [], "K3": [], "K6": []}
-    for (x, sc, sh, w, invf, gy, s, act), _ in dx_calls:
-        dx, dsc, dsh = fused_conv.fused_bnconv9_bwd_dx(x, sc, sh, w, invf, gy, s, act)
-        rdx, rsc, rsh = fused_conv.fused_bnconv9_bwd_plain(x, sc, sh, w, invf, gy, s, act)
-        tol = dx_tolerance(x, sc, w, invf, gy, s, act, rdx)
+    dx, dsc, dsh = fused_conv.fused_bnconv9_bwd_dx(x, sc, sh, w, invf, gy, s, act)
+    rdx, rsc, rsh = fused_conv.fused_bnconv9_bwd_plain(x, sc, sh, w, invf, gy, s, act)
+    tol = dx_tolerance(x, sc, w, invf, gy, s, act, rdx)
 
-        def dx_ok(v):
-            return bool(((v.float() - rdx.float()).abs() <= tol).all())
+    def dx_ok(v):
+        return bool(((v.float() - rdx.float()).abs() <= tol).all())
 
-        err = (dx.float() - rdx.float()).abs()
-        assert dx_ok(dx), f"K2 dx {tuple(x.shape)}: max err {err.max().item()}"
-        # the check itself: the plain dx with the centre inverse tap dropped,
-        # and an all-zero dx, must fail it
-        dropped = invf.clone()
-        dropped[:, 4] = -1
-        assert not dx_ok(fused_conv.fused_bnconv9_bwd_plain(
-            x, sc, sh, w, dropped, gy, s, act)[0]), "the dx check passes a dropped tap"
-        assert not dx_ok(torch.zeros_like(dx)), "the dx check passes a zero dx"
-        # f32 channel sums over ~10^8 rows in another order: bounded by
-        # 3e-5 of the sum of the terms' magnitudes (cancellation leaves the
-        # sums themselves far smaller)
-        g = (rdx.float() / sc).abs()
-        for a, b, mag, name in ((dsc, rsc, (g * x.float().abs()).sum((0, 1)), "dscale"),
-                                (dsh, rsh, g.sum((0, 1)), "dshift")):
-            e = (a - b).abs()
-            assert bool((e <= 3e-5 * mag + 1e-6).all()), f"K2 {name}: max err {e.max().item()}"
-        nbytes, flops = dx_work(x, w, invf, gy, s)
-        peak = H100_BF16_FLOPS if x.dtype == torch.bfloat16 else H100_F32_FLOPS
-        rows["K2"].append(dict(
-            shape=f"dx x{tuple(x.shape)} gy{tuple(gy.shape)} s{s}",
-            err=err.max().item(), tol="2^-7 rel + 2^-12 x sum|terms|",
-            ms=cuda_ms(lambda: fused_conv.fused_bnconv9_bwd_dx(x, sc, sh, w, invf, gy, s, act), 5),
-            plain_ms=cuda_ms(lambda: fused_conv.fused_bnconv9_bwd_plain(
-                x, sc, sh, w, invf, gy, s, act), 2),
-            library_ms=None, bound=bound_ms(nbytes, flops, peak)))
-    for (x, sc, sh, idx, gy, s, act), _ in dw_calls:
-        dw = fused_conv.fused_bnconv9_dw(x, sc, sh, idx, gy, s, act)
-        again = fused_conv.fused_bnconv9_dw(x, sc, sh, idx, gy, s, act)
-        assert torch.equal(dw, again), "dW: two runs differ (the sum order must be fixed)"
-        ref = fused_conv.fused_bnconv9_dw_plain(x, sc, sh, idx, gy, s, act)
-        # f32 sums over ~10^7 rows in another order: within 3e-5 of the sum
-        # of the terms' magnitudes (the activation is >= 0 when act)
-        mag = fused_conv.fused_bnconv9_dw_plain(x if act else x.abs(), sc, sh, idx, gy.abs(),
-                                                s, act)
-        err = (dw - ref).abs()
-        tol = 3e-5 * mag + 1e-6
-        assert bool((err <= tol).all()), \
-            f"dW {tuple(x.shape)} act {act}: max err {err.max().item()}"
-        err = err.max().item()
-        nbytes, flops = dw_work(x, idx, gy, s)
-        peak = H100_BF16_FLOPS if x.dtype == torch.bfloat16 else H100_F32_FLOPS
-        rows["K2" if act else "K3"].append(dict(
-            shape=f"dW x{tuple(x.shape)} gy{tuple(gy.shape)} s{s} act{int(act)}",
-            err=err, tol="3e-05 x sum|terms|, bit-equal reruns",
-            ms=cuda_ms(lambda: fused_conv.fused_bnconv9_dw(x, sc, sh, idx, gy, s, act), 5),
-            plain_ms=cuda_ms(lambda: fused_conv.fused_bnconv9_dw_plain(
-                x, sc, sh, idx, gy, s, act), 2),
-            library_ms=None, bound=bound_ms(nbytes, flops, peak)))
+    err = (dx.float() - rdx.float()).abs()
+    assert dx_ok(dx), f"K2 dx {tuple(x.shape)}: max err {err.max().item()}"
+    dropped = invf.clone()
+    dropped[:, 4] = -1
+    assert not dx_ok(fused_conv.fused_bnconv9_bwd_plain(
+        x, sc, sh, w, dropped, gy, s, act)[0]), "the dx check passes a dropped tap"
+    assert not dx_ok(torch.zeros_like(dx)), "the dx check passes a zero dx"
+    g = (rdx.float() / sc).abs()
+    for a, b, mag, name in ((dsc, rsc, (g * x.float().abs()).sum((0, 1)), "dscale"),
+                            (dsh, rsh, g.sum((0, 1)), "dshift")):
+        e = (a - b).abs()
+        assert bool((e <= 3e-5 * mag + 1e-6).all()), f"K2 {name}: max err {e.max().item()}"
+    del dx, rdx, tol, g, dropped
+    return dict(
+        shape=f"dx x{tuple(x.shape)} gy{tuple(gy.shape)} s{s} act{int(act)}",
+        err=err.max().item(), tol="2^-7 rel + 2^-12 x sum|terms|", share=pair_share(invf),
+        ms=cuda_ms(lambda: fused_conv.fused_bnconv9_bwd_dx(x, sc, sh, w, invf, gy, s, act), 5),
+        plain_ms=cuda_ms(lambda: fused_conv.fused_bnconv9_bwd_plain(
+            x, sc, sh, w, invf, gy, s, act), 2) if plain else None,
+        library_ms=None, **conv_bound(dx_work(x, w, invf, gy, s), x))
+
+
+def check_dw_call(x, sc, sh, idx, gy, s, act, plain=True):
+    """Hold one dW call against its plain version (f32 sums over ~10^7
+    rows in another order: within 3e-5 of the sum of the terms' magnitudes;
+    the activation is >= 0 when act), a second run bit-equal to the first,
+    and time it."""
+    import torch
+
+    from toda_tpu_torch.ops import fused_conv
+
+    dw = fused_conv.fused_bnconv9_dw(x, sc, sh, idx, gy, s, act)
+    again = fused_conv.fused_bnconv9_dw(x, sc, sh, idx, gy, s, act)
+    assert torch.equal(dw, again), "dW: two runs differ (the sum order must be fixed)"
+    ref = fused_conv.fused_bnconv9_dw_plain(x, sc, sh, idx, gy, s, act)
+    mag = fused_conv.fused_bnconv9_dw_plain(x if act else x.abs(), sc, sh, idx, gy.abs(), s, act)
+    err = (dw - ref).abs()
+    assert bool((err <= 3e-5 * mag + 1e-6).all()), \
+        f"dW {tuple(x.shape)} act {act}: max err {err.max().item()}"
+    return dict(
+        shape=f"dW x{tuple(x.shape)} gy{tuple(gy.shape)} s{s} act{int(act)}",
+        err=err.max().item(), tol="3e-05 x sum|terms|, bit-equal reruns", share=pair_share(idx),
+        ms=cuda_ms(lambda: fused_conv.fused_bnconv9_dw(x, sc, sh, idx, gy, s, act), 5),
+        plain_ms=cuda_ms(lambda: fused_conv.fused_bnconv9_dw_plain(
+            x, sc, sh, idx, gy, s, act), 2) if plain else None,
+        library_ms=None, **conv_bound(dw_work(x, idx, gy, s), x))
+
+
+def check_train_kernels(dx_calls, dw_calls, gather_calls):
+    """Hold each recorded backward call's kernel against its plain version
+    (``check_dx_call``, ``check_dw_call``; K6 exactly, ``check_gathers``)
+    and time both; returns the K2, K3 and K6 rows."""
+    rows = {"K2": [check_dx_call(*args) for args, _ in dx_calls], "K3": [], "K6": []}
+    for args, _ in dw_calls:
+        rows["K2" if args[-1] else "K3"].append(check_dw_call(*args))
     rows["K6"] = check_gathers((), gather_calls)["K6"]
+    return rows
+
+
+STRESS_EXTRA = 101  # rows past a stress table's plane: M is odd, not a multiple of a tile
+
+
+def stress_table(h, w, stride, device):
+    """A tap table no flagship scene gives, and its inverse: (idx, invf,
+    m_in). The first rows are a dense h x w BEV plane (a LiDAR ground
+    plane's neighbourhood; at stride 2 its (h/2) x (w/2) coarse cells), where
+    every interior pillar has all 9 taps; then STRESS_EXTRA rows of which
+    every 13th has its centre tap alone (onto an input row of its own) and
+    the rest none, so each block of rows there holds one present pillar
+    among pillars with no taps."""
+    import torch
+
+    ho, wo = h // stride, w // stride
+    yy, xx = torch.meshgrid(torch.arange(ho, device=device), torch.arange(wo, device=device),
+                            indexing="ij")
+    taps = []
+    for t in range(9):
+        iy, ix = stride * yy + t // 3 - 1, stride * xx + t % 3 - 1
+        inside = (iy >= 0) & (iy < h) & (ix >= 0) & (ix < w)
+        taps.append(torch.where(inside, iy * w + ix, -1).reshape(-1))
+    extra = torch.full((STRESS_EXTRA, 9), -1, dtype=torch.long, device=device)
+    k = torch.arange(STRESS_EXTRA, device=device)
+    extra[:, 4] = torch.where(k % 13 == 6, h * w + k, -1)
+    idx = torch.cat([torch.stack(taps, 1), extra]).int().contiguous()
+    m_in = h * w + STRESS_EXTRA
+    inv = torch.full((m_in * 9 + 1,), -1, dtype=torch.int32, device=device)
+    slot = torch.where(idx >= 0, idx.long() * 9 + torch.arange(9, device=device), m_in * 9)
+    rows = torch.arange(idx.shape[0], device=device, dtype=torch.int32)[:, None].expand(-1, 9)
+    inv.scatter_(0, slot.reshape(-1), rows.reshape(-1))
+    return idx, inv[:m_in * 9].view(m_in, 9), m_in
+
+
+# (C, Cout, nz, z_stride, act, plane side) of the stress tables: stage-1
+# widths (the first conv's C = 8 raw, a subm conv, the stride-2 down conv)
+# and stage-3 widths (a subm conv and the stride-2 down conv to stage 4)
+STRESS_LAYERS = ((8, 16, 40, 1, False, 256), (16, 16, 40, 1, True, 256),
+                 (16, 32, 40, 2, False, 256), (64, 64, 10, 1, True, 128),
+                 (64, 64, 10, 2, False, 128))
+
+
+def phase_stress_tables():
+    """K1, dx and dW (bf16) on ``stress_table`` tables at stage-1 and
+    stage-3 widths, both strides, the first conv's C = 8 with act=False:
+    each held against its plain version at the recorded calls' tolerances
+    (``check_k1_call``, ``check_dx_call``, ``check_dw_call``), and timed
+    beside its bound; the dense planes have every tap present, so the
+    operations bound matters there. Their launches are not the main
+    path's and are not counted."""
+    import torch
+
+    rows = {"K1": [], "K2": [], "K3": []}
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for c, cout, nz, s, act, side in STRESS_LAYERS:
+        idx, invf, m_in = stress_table(side, side, s, "cuda")
+        nz_out = -(-nz // s)
+
+        def rand(*shape, std=1.0):
+            return (torch.randn(shape, generator=gen, device="cuda") * std).to(torch.bfloat16)
+
+        x = rand(m_in, nz, c)
+        sc = (0.5 + torch.rand(c, generator=gen, device="cuda")).contiguous()
+        sh = (torch.rand(c, generator=gen, device="cuda") - 0.5).contiguous()
+        w = rand(3, 3, 3, c, cout, std=(2.0 / (27 * c)) ** 0.5)
+        gy = rand(idx.shape[0], nz_out, cout)
+        rows["K1"].append(check_k1_call(x, sc, sh, w, idx, s, act, plain=False))
+        rows["K2"].append(check_dx_call(x, sc, sh, w, invf, gy, s, act, plain=False))
+        rows["K2" if act else "K3"].append(check_dw_call(x, sc, sh, idx, gy, s, act,
+                                                        plain=False))
+        del x, w, gy, idx, invf
+        torch.cuda.empty_cache()
+    log(f"phase stress tables (bf16; dense planes with every tap present, then "
+        f"{STRESS_EXTRA} rows of lone pillars and pillars with no taps):")
+    log_rows(rows)
     return rows
 
 
@@ -1612,13 +1733,13 @@ def phase_toda():
         f"launches {launches} ({n_pl} predict + {n_pl} perturb steps: per perturb step "
         f"{TODA_PER_STEP['perturb']}); {n_boxes} pseudo boxes kept, "
         f"{sum(len(i['p_voxel_coords']) for i in infos)} perturbed voxels stored")
-    if n_boxes == 0:
-        zero = generate_pseudo_labels(pb, tloader, tds, s1.CLASS_NAMES, score_thresh=0.0,
-                                      with_perturb=True, eps=float(plcfg.EPS))
-        log(f"  no detection of the briefly trained stage-1 weights reaches score "
-            f"{plcfg.SCORE_THRESH}; at score 0 the same sweep keeps "
-            f"{sum(len(i['gt_boxes']) for i in zero)} boxes (the perturbation's targets "
-            f"are the NMS output at POST_PROCESSING.SCORE_THRESH in both)")
+    # the same sweep at score 0: the box-bearing pseudo frames of the F1 pass
+    infos0 = generate_pseudo_labels(pb, tloader, tds, s1.CLASS_NAMES, score_thresh=0.0,
+                                    with_perturb=True, eps=float(plcfg.EPS))
+    n_boxes0 = sum(len(i["gt_boxes"]) for i in infos0)
+    assert n_boxes0 > 0, "no pseudo box even at score 0"
+    log(f"  at score 0 the same sweep keeps {n_boxes0} boxes (the perturbation's targets "
+        f"are the NMS output at POST_PROCESSING.SCORE_THRESH in both)")
     with torch.no_grad():
         rows = check_train_kernels(raw_dx, (), k4_vjp)
     del kdx, k6, raw_dx, k4_vjp
@@ -1672,7 +1793,31 @@ def phase_toda():
         f"(batch {BATCH} scans, two views each, best of 3 x 10 steps, loss read back every "
         f"step)")
     phase_profile(cl_run, "TODA CL step")
-    del b2, state2, step2, dev2, cbatches
+    del step2, dev2, cbatches
+
+    # stage 2 on box-bearing pseudo frames: MixUp over the score-0 pseudo
+    # labels, the consistency matched at score 0 (the 3-step stage-1 weights
+    # score no box above 0.2, so at the config's 0.3 nothing would match)
+    np.random.seed(SEED + 1)
+    mds0, _, _ = build_mixup_dataloader(s2.DATA_CONFIG, s2.CLASS_NAMES, batch_size=BATCH,
+                                        pseudo_infos=infos0, training=True)
+    fbatches = [b for _, b in zip(range(2), DataLoader(CLPairDataset(mds0), BATCH,
+                                                        training=True))]
+    step0 = make_train_step_cl(b2, consistency_weight=float(cl_cfg.WEIGHT), score_thresh=0.0)
+    reset_launches()
+    tbs0 = [{k: float(v) for k, v in step0(state2, b)[1].items()} for b in fbatches]
+    launches = toda_launches()
+    assert launches == times(TODA_PER_STEP["cl"], len(fbatches)), launches
+    assert all(math.isfinite(v) for tb in tbs0 for v in tb.values()), tbs0
+    assert all(tb["consistency_center"] > 0 and tb["consistency_size"] > 0 for tb in tbs0), \
+        f"the consistency terms vanish on box-bearing pseudo frames: {tbs0}"
+    n_gt = [int((b[v]["gt_boxes"][..., -1] > 0).sum()) for b in fbatches for v in ("adv", "org")]
+    log(f"phase TODA stage 2 on pseudo boxes (F1): {len(fbatches)} make_train_step_cl steps "
+        f"over MixUpDataset of the {n_boxes0} score-0 pseudo boxes, consistency matched at "
+        f"score 0; boxes per view batch {n_gt}; launches {launches}; "
+        f"{[{k: round(v, 4) for k, v in tb.items()} for tb in tbs0]}; both consistency "
+        f"terms nonzero")
+    del b2, state2, step0, fbatches, mds0
     torch.cuda.empty_cache()
     return rows, total, metrics
 
@@ -1827,6 +1972,7 @@ def main():
     log(f"training: {len(tbatches)} batches of {BATCH} augmented scans, "
         f"{int(sum((b['gt_boxes'][..., -1] > 0).sum() for b in tbatches))} gt boxes")
     rows.update(phase_train_kernels(state, step, tbatches[0]))
+    phase_stress_tables()
     tlaunches, train_scans, train_peak, tdev = phase_train_main(tbundle, state, step, tbatches)
     phase_profile(lambda: float(step(state, tdev)[1]["loss"]), "train step")
     launches.update({"K2": tlaunches["K2dx"] + tlaunches["dW"] - tlaunches["dW_raw"],

@@ -2,8 +2,9 @@
 loads them with ctypes.
 
 Each source becomes one shared library with a plain C interface under
-``build/kernels/`` at the repository root, named by a digest of its source and
-flags, so an edited source is rebuilt and an unchanged one is reused. All
+``build/kernels/`` at the repository root, named by a digest of its source,
+the headers beside it (``csrc/*.cuh``) and the flags, so an edited source is
+rebuilt and an unchanged one is reused. All
 missing libraries are compiled at once, one nvcc process per source. Nothing
 is built when a module is imported: the first kernel launch (or an explicit
 ``build_all()``) does it.
@@ -41,7 +42,9 @@ def _nvcc():
 
 
 def _target(name):
-    src = (CSRC / name).read_bytes()
+    # a source's library is rebuilt when it or any header beside it changes
+    src = (CSRC / name).read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{Path(name).stem}-{digest}.so"
 
