@@ -61,7 +61,12 @@ Phases (none catches its own failure; any failure exits non-zero):
      the card the fused contract (K1-K3) on the same weights and batch:
      forward outputs and step-1 gradients must agree; one
      ``pillar_conv3d_t`` with Cout 8 (K8's per-group backward) against its
-     cpu run;
+     cpu run; then K7 and K10 on tables no scene gives
+     (``phase_stress_column_gathers``: an odd M, all -1 indices, f32
+     tables, every chunk order, M = 2N with no identity tap, N = 1, a
+     table not 16-byte aligned, each Cout, C = 8, nz = 1, a tap absent
+     from whole blocks, and a dense stage-3 plane at full width), K7
+     exactly and K10 at its tolerance against their plain versions;
  17. full-width SECOND (``second_cfg``: the Waymo config on synthetic
      scenes, ``FUSED_CONV: False``): with every launch counter at 0,
      ``eval_one_epoch`` over 3 batches of 4 scans (K7 7, K8 12, K4 2, K5 1
@@ -1825,88 +1830,209 @@ def phase_toda():
 def k10_work(table, idx, nz, cout, identity):
     """(bytes, flops) of one K10 call: the table columns it names (and its
     own, for the identity tap) read once, the (nz*Cout, M) output written
-    once, idx and the f32 weights read once; 2*3C*Cout flops per output z of
-    each (column, tap) that reads a column."""
+    once, idx and the (3, 3, 3, C, Cout) weights read once; 2*3C*Cout flops
+    per output z of each (column, tap) that reads a column."""
     import torch
 
     w = table.shape[0]
     c = w // (nz + 2)
     m = idx.shape[0]
     taps = idx.clone()
-    if identity is not None:
+    if identity is not None and m == table.shape[1]:
         taps[:, identity] = torch.arange(m, device=idx.device, dtype=idx.dtype)
     cols = int(torch.unique(taps[taps >= 0]).numel())
     eb = table.element_size()
     pairs = int(torch.count_nonzero(taps >= 0).item())
-    nbytes = cols * w * eb + nz * cout * m * eb + idx.numel() * 4 + 27 * c * cout * 4
+    nbytes = cols * w * eb + nz * cout * m * eb + idx.numel() * 4 + 27 * c * cout * eb
     return nbytes, 2 * 3 * c * cout * nz * pairs
+
+
+def check_k10_call(table, idx, w, nz, it, what):
+    """K10 on one call, held against its plain version (2^-7 relative +
+    2^-12 of the sum of the terms' magnitudes: f32 sums in another order,
+    one rounding each) and against K7 followed by ``pillar_conv3d_t``'s z
+    product, the path it would replace (which rounds each tap's partial sum
+    to the table's type: 2^-7 relative + 9 x 2^-8 of the sum of
+    magnitudes); all three timed. Returns its row, whose ``launches`` is
+    the launch count of the one checked call (the timing launches aside)."""
+    import torch
+
+    from toda_tpu_torch.ops import gather, pillar_sparse
+
+    c, cout = w.shape[3:]
+    before = gather.LAUNCHES["gather9_conv_t"]
+    out = gather.gather9_conv_t(table, idx, w, nz, identity_tap=it)
+    launches = gather.LAUNCHES["gather9_conv_t"] - before
+    ref = gather.gather9_conv_t_plain(table, idx, w, nz, identity_tap=it)
+    mag = gather.gather9_conv_t_plain(table.float().abs(), idx, w.float().abs(), nz,
+                                      identity_tap=it)
+    taps_w = w.permute(1, 2, 0, 3, 4).reshape(9, 3, c, cout)
+
+    def k7_path():
+        g = gather.gather9_stacked_t(table, idx, identity_tap=it)
+        return pillar_sparse._zconv_t(g.view(9, table.shape[0], -1), taps_w, c, 1)
+
+    path = k7_path().reshape(out.shape)
+    err = (out.float() - ref.float()).abs()
+    assert bool((err <= 2.0 ** -7 * ref.float().abs() + 2.0 ** -12 * mag).all()), \
+        f"K10 {what}: max err {err.max().item()} against its plain version"
+    perr = (out.float() - path.float()).abs()
+    assert bool((perr <= 2.0 ** -7 * path.float().abs() + 9 * 2.0 ** -8 * mag).all()), \
+        f"K10 {what}: max err {perr.max().item()} against K7 + z product"
+    del out, ref, mag, path
+    nbytes, flops = k10_work(table, idx, nz, cout, it)
+    return dict(shape=what, err=err.max().item(), tol="2^-7 rel + 2^-12 x sum|terms|",
+                path_err=perr.max().item(), launches=launches,
+                ms=cuda_ms(lambda: gather.gather9_conv_t(table, idx, w, nz, identity_tap=it), 5),
+                plain_ms=cuda_ms(lambda: gather.gather9_conv_t_plain(table, idx, w, nz, it), 2),
+                path_ms=cuda_ms(k7_path, 5), library_ms=None,
+                bound=bound_ms(nbytes, flops, peak_flops(table)))
+
+
+def log_k10_rows(rows):
+    for r in rows:
+        log(f"  K10 {r['shape']}: max_abs_err {r['err']:.3g} vs plain ({r['tol']}), "
+            f"{r['path_err']:.3g} vs K7 + z product; ms {r['ms']:.4f}, plain_ms "
+            f"{r['plain_ms']:.4f}, K7 + z product ms {r['path_ms']:.4f}, bound_ms "
+            f"{r['bound'][0]:.4f} ({r['bound'][1]})")
 
 
 def phase_k10(k7_calls, layer_shapes):
     """K10 (``gather9_conv_t``) on every stride-1 K7 call of SECOND's
     recorded forward (stages 1-4): each table and tap table gets seeded
-    He-normal weights of its layer's (C, C) shape; K10's output is held
-    against its plain version (2^-7 relative + 2^-12 of the sum of the terms'
-    magnitudes: f32 sums in another order, one bf16 rounding each) and
-    against K7 followed by ``pillar_conv3d_t``'s z product, the path it
-    would replace (which rounds each tap's partial sum to bf16: 2^-7
-    relative + 9 x 2^-8 of the sum of magnitudes); all three are timed.
-    ``layer_shapes`` maps a haloed table height W to (nz, C). K10's launches
-    are those of the checks here (no path runs it)."""
+    He-normal weights of its layer's (C, C) shape and goes through
+    ``check_k10_call``. ``layer_shapes`` maps a haloed table height W to
+    (nz, C). K10's launches are those of the checks here (no path runs
+    it)."""
     import torch
 
-    from toda_tpu_torch.ops import gather, pillar_sparse
+    from toda_tpu_torch.ops import gather
 
     gen = torch.Generator().manual_seed(SEED)
     rows = {"K10": []}
-    launches = 0
     for (table, idx), kw in k7_calls:
         nz, c = layer_shapes[table.shape[0]]
-        it = kw.get("identity_tap")
         w = (torch.randn((3, 3, 3, c, c), generator=gen) * (2.0 / (27 * c)) ** 0.5).to(
             device=table.device, dtype=table.dtype)
-        before = gather.LAUNCHES["gather9_conv_t"]
-        out = gather.gather9_conv_t(table, idx, w, nz, identity_tap=it)
-        launches += gather.LAUNCHES["gather9_conv_t"] - before
-        ref = gather.gather9_conv_t_plain(table, idx, w, nz, identity_tap=it)
-        mag = gather.gather9_conv_t_plain(table.float().abs(), idx, w.float().abs(), nz,
-                                          identity_tap=it)
-        taps_w = w.permute(1, 2, 0, 3, 4).reshape(9, 3, c, c)
-
-        def k7_path(table=table, idx=idx, taps_w=taps_w, c=c, it=it):
-            g = gather.gather9_stacked_t(table, idx, identity_tap=it)
-            return pillar_sparse._zconv_t(g.view(9, table.shape[0], -1), taps_w, c, 1)
-
-        path = k7_path().reshape(out.shape)
-        err = (out.float() - ref.float()).abs()
-        assert bool((err <= 2.0 ** -7 * ref.float().abs() + 2.0 ** -12 * mag).all()), \
-            f"K10 {tuple(table.shape)}: max err {err.max().item()} against its plain version"
-        perr = (out.float() - path.float()).abs()
-        assert bool((perr <= 2.0 ** -7 * path.float().abs() + 9 * 2.0 ** -8 * mag).all()), \
-            f"K10 {tuple(table.shape)}: max err {perr.max().item()} against K7 + z product"
-        del out, ref, mag, path
-        nbytes, flops = k10_work(table, idx, nz, c, it)
-        r = dict(shape=f"table{tuple(table.shape)} {table.dtype} idx{tuple(idx.shape)} nz{nz} "
-                       f"C=Cout={c}",
-                 err=err.max().item(), tol="2^-7 rel + 2^-12 x sum|terms|",
-                 path_err=perr.max().item(),
-                 ms=cuda_ms(lambda: gather.gather9_conv_t(table, idx, w, nz, identity_tap=it), 5),
-                 plain_ms=cuda_ms(lambda: gather.gather9_conv_t_plain(table, idx, w, nz, it), 2),
-                 path_ms=cuda_ms(k7_path, 5), library_ms=None,
-                 bound=bound_ms(nbytes, flops, H100_BF16_FLOPS))
-        rows["K10"].append(r)
-        del err, perr
+        rows["K10"].append(check_k10_call(
+            table, idx, w, nz, kw.get("identity_tap"),
+            f"table{tuple(table.shape)} {table.dtype} idx{tuple(idx.shape)} nz{nz} C=Cout={c}"))
+    launches = sum(r["launches"] for r in rows["K10"])
     assert launches == len(k7_calls), launches
     log(f"phase K10: {launches} stride-1 convs of SECOND's forward through gather9_conv_t")
-    for r in rows["K10"]:
-        log(f"  K10 {r['shape']}: max_abs_err {r['err']:.3g} vs plain ({r['tol']}), "
-            f"{r['path_err']:.3g} vs K7 + z product; ms {r['ms']:.4f}, plain_ms "
-            f"{r['plain_ms']:.4f}, K7 + z product ms {r['path_ms']:.4f}, bound_ms "
-            f"{r['bound'][0]:.4f} ({r['bound'][1]})")
+    log_k10_rows(rows["K10"])
     log(f"  K10 per forward: {sum(r['ms'] for r in rows['K10']):.3f} ms over {launches} "
         f"calls, bound {sum(r['bound'][0] for r in rows['K10']):.3f} ms, K7 + z product "
         f"{sum(r['path_ms'] for r in rows['K10']):.3f} ms")
     return rows, launches
+
+
+def misaligned(t):
+    """A contiguous copy of t whose data starts 2 bytes past a 16-byte
+    boundary."""
+    import torch
+
+    flat = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+    out = flat[1:1 + t.numel()].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 != 0
+    return out
+
+
+def random_taps(gen, m, n, present, device):
+    """An (m, 9) int32 tap table into n columns, each entry present with
+    probability ``present``, nondecreasing per tap where present (as the
+    key-sorted pillars' tables are)."""
+    import torch
+
+    vals = torch.sort(torch.randint(0, n, (m, 9), generator=gen, device=device), dim=0).values
+    keep = torch.rand((m, 9), generator=gen, device=device) < present
+    return torch.where(keep, vals, -1).int().contiguous()
+
+
+def phase_stress_column_gathers():
+    """K7 and K10 on tables no scene gives, on top of the recorded calls,
+    each held against its plain version (K7 exactly, K10 by
+    ``check_k10_call``; both also timed). K7: an odd M (not a multiple of
+    8), all -1 indices, an f32 table, chunks 16, 32 and 64, M = 2N with no
+    identity tap (the backward's inverse tables), N = 1, a table not 16-byte
+    aligned, and a dense stage-3 plane (every tap present) in both row
+    orders at full width. K10: each Cout in {8, 16, 32, 64}, C = 8, nz = 1,
+    an odd M, a tap absent from a whole block, no identity tap, an f32
+    table, a table not aligned, and the dense stage-3 plane at full width.
+    Their launches are not the main path's and are not counted."""
+    import torch
+
+    from toda_tpu_torch.ops import gather
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def rand(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    rows = {"K7": [], "K10": []}
+    dense, _, n_dense = stress_table(256, 256, 1, "cuda")  # M = N = 65637, odd
+    small, _, n_small = stress_table(48, 48, 1, "cuda")    # M = N = 2405
+    k7_cases = [
+        ("dense stage-3 plane, [t][W]", rand(640, n_dense), dense, None, 4),
+        ("dense stage-3 plane, chunk 64", rand(640, n_dense), dense, 64, 4),
+        ("odd M, chunk 16", rand(192, n_small), small, 16, 4),
+        ("chunk 32", rand(192, n_small), small, 32, 4),
+        ("f32 table, chunk 64", rand(192, n_small, dtype=torch.float32), small, 64, 4),
+        ("all -1", rand(64, 999), torch.full((999, 9), -1, dtype=torch.int32, device="cuda"),
+         None, None),
+        ("M = 2N, no identity", rand(128, 1500), random_taps(gen, 3000, 1500, 0.5, "cuda"),
+         32, None),
+        ("N = 1", rand(64, 1), random_taps(gen, 37, 1, 0.5, "cuda"), None, None),
+        ("table not 16-byte aligned", misaligned(rand(96, n_small)), small, 32, 4),
+    ]
+    for what, table, idx, chunk, it in k7_cases:
+        kw = dict(chunk=chunk, identity_tap=it)
+        out = gather.gather9_stacked_t(table, idx, **kw)
+        assert torch.equal(out, gather.gather9_stacked_t_plain(table, idx, **kw)), \
+            f"K7 stress {what} differs from its plain version"
+        del out
+        rows["K7"].append(dict(
+            shape=f"{what}: table{tuple(table.shape)} {table.dtype} idx{tuple(idx.shape)}",
+            err=0.0, tol="0 (exact)",
+            ms=cuda_ms(lambda: gather.gather9_stacked_t(table, idx, **kw), 5),
+            plain_ms=cuda_ms(lambda: gather.gather9_stacked_t_plain(table, idx, **kw), 2),
+            library_ms=None,
+            bound=bound_ms(*column_gather_work(table, idx, 9), H100_F32_FLOPS)))
+    absent = small.clone()
+    absent[:512, 0] = -1  # tap 0 absent from the first 8 blocks of 64 columns
+    bf16 = torch.bfloat16
+    k10_cases = [  # (what, C, Cout, nz, idx, N, identity, dtype, aligned)
+        ("dense stage-3 plane", 64, 64, 10, dense, n_dense, 4, bf16, True),
+        ("Cout 8", 16, 8, 4, small, n_small, 4, bf16, True),
+        ("Cout 16, tap 0 absent from 8 blocks", 16, 16, 4, absent, n_small, 4, bf16, True),
+        ("Cout 32, nz 1", 32, 32, 1, small, n_small, 4, bf16, True),
+        ("Cout 64, no identity tap", 64, 64, 3, small, n_small, None, bf16, True),
+        ("C 8", 8, 16, 3, small, n_small, 4, bf16, True),
+        ("odd M = 2N, no identity", 16, 32, 2, random_taps(gen, 1201, 600, 0.5, "cuda"), 600,
+         None, bf16, True),
+        ("f32 table", 16, 16, 3, small, n_small, 4, torch.float32, True),
+        ("table not 16-byte aligned", 32, 16, 2, small, n_small, 4, bf16, False),
+    ]
+    for what, c, cout, nz, idx, n, it, dtype, aligned in k10_cases:
+        table = rand((nz + 2) * c, n, dtype=dtype)
+        table[:c] = 0
+        table[-c:] = 0
+        if not aligned:
+            table = misaligned(table)
+        w = rand(3, 3, 3, c, cout, dtype=dtype) * (2.0 / (27 * c)) ** 0.5
+        rows["K10"].append(check_k10_call(
+            table, idx, w.to(dtype), nz, it,
+            f"{what}: table{tuple(table.shape)} {dtype} idx{tuple(idx.shape)} nz{nz} C={c} "
+            f"Cout={cout}"))
+        assert rows["K10"][-1]["launches"] == 1, rows["K10"][-1]["launches"]
+        del table, w
+    del dense, small, absent
+    torch.cuda.empty_cache()
+    log("phase stress column gathers (K7 exact, K10 at its tolerance):")
+    log_rows({"K7": rows["K7"]})
+    log_k10_rows(rows["K10"])
+    return rows
 
 
 def main():
@@ -2022,6 +2148,7 @@ def main():
     # SECOND: the legacy conv contract (K7, K8), training and inference
     torch.backends.cudnn.allow_tf32 = False
     phase_second_tiny()
+    phase_stress_column_gathers()
     torch.backends.cudnn.allow_tf32 = True
     srows, slaunches, second_scans, second_train, second_peak = phase_second(second_cfg())
     rows.update(srows)

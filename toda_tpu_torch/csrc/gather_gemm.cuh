@@ -1,7 +1,8 @@
 // Building blocks of the fused sparse pillar convolution kernels
-// (fused_conv.cu: K1; fused_conv_bwd.cu: K2's dx and dW, K3): 16-byte
-// cp.async staging, shared-memory row layouts, ldmatrix + mma.sync for bf16
-// and the gather-GEMM core that K1 and dx share.
+// (fused_conv.cu: K1; fused_conv_bwd.cu: K2's dx and dW, K3; gather.cu: K10
+// takes the staging, row layouts and fragments): 16-byte cp.async staging,
+// shared-memory row layouts, ldmatrix + mma.sync for bf16 and the
+// gather-GEMM core that K1 and dx share.
 //
 // The gather-GEMM core. One warp owns one destination pillar (its whole z
 // column and the block's slice of output channels) and keeps the f32 sums in

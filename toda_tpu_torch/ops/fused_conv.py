@@ -22,9 +22,9 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from ._plan import SMEM_LIMIT, plan_ints, pow2, row_stride, up
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
 _SMEM_PER_SM = 233472  # bytes an H100 SM shares among its resident blocks
 _SMEM_PER_BLOCK = 1024  # bytes the runtime reserves per resident block
 WARPS = 8  # warps of every fused-conv block (gather_gemm.cuh kWarps)
@@ -74,26 +74,6 @@ def _sm_count(device):
     return _sm_counts[device]
 
 
-def _plan_ints(plan, fields):
-    return (ctypes.c_int32 * len(fields))(*(int(plan[f]) for f in fields))
-
-
-def _up(n, k):
-    return -(-n // k) * k
-
-
-def _pow2(n):
-    return n > 0 and n & (n - 1) == 0
-
-
-def row_stride(chunks, swizzle=True):
-    """16-byte chunks a staged row of ``chunks`` chunks takes in shared
-    memory (gather_gemm.cuh ``Rows``): a power of two is XOR-swizzled in
-    place (when ``swizzle``) and an odd count is left as is; any other even
-    count is padded by one chunk to an odd stride."""
-    return chunks if (swizzle and _pow2(chunks)) or chunks % 2 else chunks + 1
-
-
 def conv_plan(kind, c, cout, nz_in, z_stride, esize, m_dst, act=True, sm_count=H100_SMS):
     """The launch plan of K1 (``kind`` "fwd") or K2's dx (``kind`` "dx") on
     an (M, nz_in, C) input, Cout output channels, elements of ``esize``
@@ -116,10 +96,10 @@ def conv_plan(kind, c, cout, nz_in, z_stride, esize, m_dst, act=True, sm_count=H
         width, n_src, n_out, n_total, place, astride = cout, nz_out, nz_in, c, z_stride, 1
     else:
         raise ValueError(kind)
-    if width % 8 or n_total % 8 or not _pow2(width * esize // 16) or z_stride not in (1, 2):
+    if width % 8 or n_total % 8 or not pow2(width * esize // 16) or z_stride not in (1, 2):
         raise ValueError(f"fused_bnconv9 {kind}: C={c} and Cout={cout} must be multiples "
                          f"of 8 with a power-of-two count of 16-byte chunks, z_stride 1 or 2")
-    kpad = _up(3 * width, 16)
+    kpad = up(3 * width, 16)
     mt = -(-n_out // 16)
     if mt > 3:
         raise ValueError(f"fused_bnconv9 {kind}: at most 48 z rows, got {n_out}")
@@ -133,7 +113,7 @@ def conv_plan(kind, c, cout, nz_in, z_stride, esize, m_dst, act=True, sm_count=H
             wrows, wstride = 9 * n_blk, row_stride(kpad * esize // 16, swizzle=False)
         # the dx channel sums reuse the buffers: (2, WARPS, n_blk) f32
         bufs = max(WARPS * stages * buf_bytes, 2 * WARPS * n_blk * 4)
-        return _up(8 * c, 128) + wrows * wstride * 16 + bufs
+        return up(8 * c, 128) + wrows * wstride * 16 + bufs
 
     # split the output channels over blocks until the weights fit
     n_blk = n_total
@@ -170,9 +150,9 @@ def dw_plan(c, cout, nz_in, z_stride, esize, m_out, act=True, sm_count=H100_SMS)
     runs sum in the same order. Raises ValueError for a shape the kernel
     does not take."""
     nz_out = out_depth(nz_in, z_stride)
-    kpad = _up(3 * c, 16)
+    kpad = up(3 * c, 16)
     mtt, ntt = kpad // 16, cout // 8
-    if c % 8 or cout % 16 or not (_pow2(c * esize // 16) and _pow2(cout * esize // 16)) \
+    if c % 8 or cout % 16 or not (pow2(c * esize // 16) and pow2(cout * esize // 16)) \
             or z_stride not in (1, 2):
         raise ValueError(f"fused_bnconv9_dw: C={c} must be a multiple of 8, Cout={cout} of "
                          "16, each a power-of-two count of 16-byte chunks, z_stride 1 or 2")
@@ -189,7 +169,7 @@ def dw_plan(c, cout, nz_in, z_stride, esize, m_out, act=True, sm_count=H100_SMS)
     pairs = WARPS // ksplit  # 8 pairs a block a turn
 
     def smem_of(stages):
-        return _up(8 * c + 40, 128) + ksplit * stages * pairs * (xbytes + gbytes)
+        return up(8 * c + 40, 128) + ksplit * stages * pairs * (xbytes + gbytes)
 
     stages = next((k for k in STAGES if smem_of(k) <= SMEM_LIMIT), 2)
     smem = smem_of(stages)
@@ -294,7 +274,7 @@ def fused_bnconv9(x, scale, shift, weights, idx, z_stride=1, act=True):
     y = torch.empty((m_out, plan["n_out"], cout), dtype=x.dtype, device=x.device)
     err = lib.toda_fused_bnconv9(
         x.data_ptr(), scale.data_ptr(), shift.data_ptr(), weights.data_ptr(),
-        idx.data_ptr(), y.data_ptr(), _plan_ints(plan, PLAN_FIELDS), _DTYPE_CODE[x.dtype],
+        idx.data_ptr(), y.data_ptr(), plan_ints(plan, PLAN_FIELDS), _DTYPE_CODE[x.dtype],
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "fused_bnconv9")
     LAUNCHES["fused_bnconv9"] += 1
@@ -365,7 +345,7 @@ def fused_bnconv9_bwd_dx(x, scale, shift, weights, invf, gy, z_stride=1, act=Tru
     part = torch.empty((2, plan["grid_x"], c), dtype=torch.float32, device=x.device)
     err = lib.toda_bnconv9_bwd_dx(
         gy.data_ptr(), x.data_ptr(), scale.data_ptr(), shift.data_ptr(), weights.data_ptr(),
-        invf.data_ptr(), dx.data_ptr(), part.data_ptr(), _plan_ints(plan, PLAN_FIELDS),
+        invf.data_ptr(), dx.data_ptr(), part.data_ptr(), plan_ints(plan, PLAN_FIELDS),
         _DTYPE_CODE[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "fused_bnconv9_bwd_dx")
     LAUNCHES["fused_bnconv9_bwd_dx"] += 1
@@ -430,7 +410,7 @@ def fused_bnconv9_dw(x, scale, shift, idx, gy, z_stride=1, act=True):
     err = lib.toda_bnconv9_dw(
         x.data_ptr(), scale.data_ptr(), shift.data_ptr(), pairs.data_ptr(), counts.data_ptr(),
         gy.data_ptr(), part.data_ptr(), dw.data_ptr(),
-        _plan_ints(plan, DW_PLAN_FIELDS), _DTYPE_CODE[x.dtype],
+        plan_ints(plan, DW_PLAN_FIELDS), _DTYPE_CODE[x.dtype],
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "fused_bnconv9_dw")
     LAUNCHES["fused_bnconv9_dw"] += 1

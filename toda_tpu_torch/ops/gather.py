@@ -12,12 +12,13 @@ TPU kernel ``_unpack_kernel`` :1200), ``gather_rows`` (:1121, TPU kernel
 ``_gather9_stacked_kernel`` :514) and ``gather9_conv_t`` (:856, TPU kernel
 ``_gather9_conv_kernel`` :729). The CUDA kernels are in
 ``toda_tpu_torch/csrc/gather.cu``; its header says what bounds each one on the
-H100 and why it is built as it is. Each wrapper runs its plain PyTorch version
-for a tensor on the CPU, launches its kernel for a CUDA tensor, and counts its
-launches in ``LAUNCHES[<wrapper name>]``. ``scatter_rows_add`` and
-``unpack_pillars`` are differentiable, so a gradient with respect to the
-points reaches through the voxelizer: K4's backward is K6 of the cotangent,
-K5's the VJP of its plain version.
+H100 and why it is built as it is. ``column_gather_rows`` sizes K7 / K8's row
+slices and ``conv_t_plan`` chooses K10's launch. Each wrapper runs its plain
+PyTorch version for a tensor on the CPU, launches its kernel for a CUDA
+tensor, and counts its launches in ``LAUNCHES[<wrapper name>]``.
+``scatter_rows_add`` and ``unpack_pillars`` are differentiable, so a
+gradient with respect to the points reaches through the voxelizer: K4's
+backward is K6 of the cotangent, K5's the VJP of its plain version.
 """
 
 import ctypes
@@ -25,13 +26,26 @@ import ctypes
 import torch
 
 from . import _build
+from ._plan import SMEM_LIMIT, plan_ints, row_stride, up
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _bound = False
 LAUNCHES = {"scatter_rows_add": 0, "unpack_pillars": 0, "gather_rows": 0,
             "gather_rows_taps": 0, "gather_rows_taps_t": 0, "gather9_stacked_t": 0,
             "gather9_conv_t": 0}
-_SMEM_LIMIT = 232448 - 256  # bytes of shared memory one H100 block may use, less K10's static
+# the column gathers (gather.cu gather_cols_kernel): a block takes 256
+# output columns of one tap and a slice of table rows, loaded in batches of
+# 16; a slice's table rows and the output its taps write should fit in L2
+GATHER_COLS = 256
+GATHER_BATCH_ROWS = 16
+GATHER_SLICE_BYTES = 44 << 20
+# K10 (gather.cu gather9_conv_kernel): 64 output columns a block, 8 a warp;
+# a thread keeps 20 16x8 tiles of f32 sums (z cells x 16-channel tiles); the
+# index tile is static shared memory
+CONV_T_COLS = 64
+CONV_T_ACC = 20
+_CONV_T_STATIC = 9 * (CONV_T_COLS + 4) * 4 + 16
+CONV_T_PLAN_FIELDS = ("nz", "c", "cout", "coutp", "kp", "zt", "rows", "grid_x", "grid_y", "smem")
 
 
 def _lib():
@@ -47,12 +61,14 @@ def _lib():
         lib.toda_gather_rows.restype = i32
         lib.toda_gather_rows_taps.argtypes = [p, p, p, i64, i32, i64, i32, p]
         lib.toda_gather_rows_taps.restype = i32
-        lib.toda_gather_rows_taps_t.argtypes = [p, p, p, i64, i64, i32, i32, i32, p]
-        lib.toda_gather_rows_taps_t.restype = i32
-        lib.toda_gather9_stacked_t.argtypes = [p, p, p, i64, i64, i32, i32, i32, i32, p]
-        lib.toda_gather9_stacked_t.restype = i32
-        lib.toda_gather9_conv_t.argtypes = [p, p, p, p, i64, i64, i32, i32, i32, i32, i32, p]
+        lib.toda_gather_cols.argtypes = [p, p, p, i64, i64] + [i32] * 6 + [p]
+        lib.toda_gather_cols.restype = i32
+        lib.toda_gather9_conv_t.argtypes = [p, p, p, p, i64, i64,
+                                            ctypes.POINTER(ctypes.c_int32), i32, i32, p]
         lib.toda_gather9_conv_t.restype = i32
+        lib.toda_gather9_conv_plan_fields.restype = i32
+        if lib.toda_gather9_conv_plan_fields() != len(CONV_T_PLAN_FIELDS):
+            raise RuntimeError("gather.cu and CONV_T_PLAN_FIELDS disagree")
         _bound = True
     return lib
 
@@ -299,13 +315,38 @@ def gather_rows_taps_t(tableT, idx):
         return gather_rows_taps_t_plain(tableT, idx)
     _check_table(tableT, "gather_rows_taps_t")
     _check_idx(idx, tableT, range(1, 10), "gather_rows_taps_t")
-    (w, n), (m, ntap) = tableT.shape, idx.shape
+    w, (m, ntap) = tableT.shape[0], idx.shape
     out = torch.empty((ntap, w, m), dtype=tableT.dtype, device=tableT.device)
-    err = _lib().toda_gather_rows_taps_t(tableT.data_ptr(), idx.data_ptr(), out.data_ptr(),
-                                         n, m, ntap, w, tableT.element_size(), _stream(tableT))
-    _build.check(err, "gather_rows_taps_t")
-    LAUNCHES["gather_rows_taps_t"] += 1
+    _gather_cols(tableT, idx, out, 0, None, "gather_rows_taps_t")
     return out
+
+
+def column_gather_rows(n, m, ntap, esize):
+    """Table rows one K7 / K8 block takes: 32 or 16, the most that keep a
+    slice's table rows and the output its taps write (rows x (N + T*M)
+    elements of ``esize`` bytes) within ``GATHER_SLICE_BYTES``. A slice's
+    taps run one after another and read its rows from L2; a taller slice
+    spreads a block's fixed latency (its index load and first gathers) over
+    more rows. A third batch of 16 rows does not pay: 64-row slices were
+    slower than 32-row ones on every recorded SECOND call that fits them."""
+    rows = 2 * GATHER_BATCH_ROWS
+    while rows > GATHER_BATCH_ROWS and rows * (n + ntap * m) * esize > GATHER_SLICE_BYTES:
+        rows //= 2
+    return rows
+
+
+def _gather_cols(tableT, idx, out, chunk, identity, what):
+    """Launch the column-gather kernel (K7, K8) into ``out``."""
+    (w, n), (m, ntap) = tableT.shape, idx.shape
+    if n >= 1 << 27:
+        raise ValueError(f"{what}: tables of N >= 2^27 columns are not taken, got N = {n}")
+    err = _lib().toda_gather_cols(tableT.data_ptr(), idx.data_ptr(), out.data_ptr(), n, m, ntap,
+                                  w, tableT.element_size(), chunk or 0,
+                                  -1 if identity is None else identity,
+                                  column_gather_rows(n, m, ntap, tableT.element_size()),
+                                  _stream(tableT))
+    _build.check(err, what)
+    LAUNCHES[what] += 1
 
 
 def _stacked_identity(identity_tap, m, n):
@@ -349,13 +390,9 @@ def gather9_stacked_t(tableT, idx, chunk=None, identity_tap=None):
     m = idx.shape[0]
     if chunk is not None and (chunk <= 0 or w % chunk):
         raise ValueError(f"gather9_stacked_t: chunk {chunk} must divide W = {w}")
-    it = _stacked_identity(identity_tap, m, n)
     out = torch.empty((9 * w, m), dtype=tableT.dtype, device=tableT.device)
-    err = _lib().toda_gather9_stacked_t(tableT.data_ptr(), idx.data_ptr(), out.data_ptr(), n, m,
-                                        w, tableT.element_size(), chunk or 0,
-                                        -1 if it is None else it, _stream(tableT))
-    _build.check(err, "gather9_stacked_t")
-    LAUNCHES["gather9_stacked_t"] += 1
+    _gather_cols(tableT, idx, out, chunk, _stacked_identity(identity_tap, m, n),
+                 "gather9_stacked_t")
     return out
 
 
@@ -369,6 +406,47 @@ def gather9_conv_t_plain(tableT, idx, weights, nz, identity_tap=None):
     g = gather9_stacked_t_plain(tableT, idx, identity_tap=identity_tap).view(9, w, m)
     acc = _zconv_t(g.float(), _taps_weights(weights.float()), c, 1)
     return acc.to(tableT.dtype).reshape(-1, m)
+
+
+def conv_t_plan(c, cout, nz, esize, m):
+    """The launch of K10 on a haloed ((nz+2)*C, N) table of ``esize``-byte
+    elements, Cout output channels and M output columns: a dict of
+    ``CONV_T_PLAN_FIELDS`` (gather.cu ``ConvTPlan``).
+
+    A block owns ``CONV_T_COLS`` output columns and ``zt`` output z cells
+    (``grid_x`` x ``grid_y`` blocks); each of its 8 warps sums 8 columns for
+    all ``coutp`` channels (Cout rounded up to 16) and all zt z cells, so zt
+    is at most ``CONV_T_ACC`` / (coutp / 16). A tap stages ``rows`` =
+    (zt+2)*C + kp - 3C table rows (kp: 3C rounded up to 16, the products'
+    depth; the rows past the z halo are what the last z cell's padded depth
+    reads). The z cells are cut into the fewest even tiles, then narrowed
+    until the shared memory (two taps' weights, then the staged tap or the
+    output tile) fits. Raises ValueError for a shape the kernel does not
+    take."""
+    if c % 8 or cout not in (8, 16, 32, 64) or nz < 1:
+        raise ValueError(f"gather9_conv_t: needs C % 8 == 0, Cout in (8, 16, 32, 64) and "
+                         f"nz >= 1; got C {c}, Cout {cout}, nz {nz}")
+    coutp, kp = max(cout, 16), up(3 * c, 16)
+    wbytes = coutp * row_stride(kp * esize // 16) * 16
+    tiles = -(-nz // (CONV_T_ACC // (coutp // 16)))
+    for zt in range(-(-nz // tiles), 0, -1):
+        rows = (zt + 2) * c + kp - 3 * c
+        smem = 2 * wbytes + max(rows * CONV_T_COLS * esize,
+                                zt * cout * (CONV_T_COLS * esize + 16))
+        if smem <= SMEM_LIMIT - _CONV_T_STATIC:
+            return dict(nz=nz, c=c, cout=cout, coutp=coutp, kp=kp, zt=zt, rows=rows,
+                        grid_x=-(-m // CONV_T_COLS), grid_y=-(-nz // zt), smem=smem)
+    raise ValueError(f"gather9_conv_t: C={c}, Cout={cout} does not fit in shared memory")
+
+
+def pack_conv_t_weights(weights, plan):
+    """K10's weights, packed once per call: (9, coutp, kp) in the weights'
+    type, [t][co][dz*C + ci] = weights[dz, t // 3, t % 3, ci, co], zero past
+    Cout and 3C."""
+    c, cout = weights.shape[3:]
+    packed = weights.new_zeros((9, plan["coutp"], plan["kp"]))
+    packed[:, :cout, :3 * c] = weights.permute(1, 2, 4, 0, 3).reshape(9, cout, 3 * c)
+    return packed
 
 
 def gather9_conv_t(tableT, idx, weights, nz, identity_tap=None):
@@ -386,7 +464,7 @@ def gather9_conv_t(tableT, idx, weights, nz, identity_tap=None):
             activations with one zero z cell of C rows on each side.
         idx: (M, 9) int32 in [-1, N), contiguous.
         weights: (3, 3, 3, C, Cout) in (dz, dy, dx) order, the table's type;
-            C % 8 == 0 and Cout in {8, 16, 32, 64}.
+            C % 8 == 0 and Cout in {8, 16, 32, 64} (``conv_t_plan``).
         nz: output z cells (the input's, stride 1).
     Returns (nz*Cout, M) in the table's type, unmasked.
     """
@@ -397,26 +475,19 @@ def gather9_conv_t(tableT, idx, weights, nz, identity_tap=None):
     w, n = tableT.shape
     m = idx.shape[0]
     c, cout = w // (nz + 2), weights.shape[-1]
-    if w != (nz + 2) * c or c % 8 or cout not in (8, 16, 32, 64) \
-            or weights.shape != (3, 3, 3, c, cout) or weights.dtype != tableT.dtype \
-            or weights.device != tableT.device:
-        raise ValueError(f"gather9_conv_t: needs W = (nz+2)*C with C % 8 == 0, weights "
-                         f"(3, 3, 3, C, Cout) in the table's type with Cout in (8, 16, 32, "
-                         f"64); got W {w}, nz {nz}, weights {weights.dtype} "
+    if nz < 1 or w != (nz + 2) * c or weights.shape != (3, 3, 3, c, cout) \
+            or weights.dtype != tableT.dtype or weights.device != tableT.device:
+        raise ValueError(f"gather9_conv_t: needs W = (nz+2)*C and weights (3, 3, 3, C, Cout) "
+                         f"in the table's type; got W {w}, nz {nz}, weights {weights.dtype} "
                          f"{tuple(weights.shape)}")
-    zt = 32 // (cout // 8)
-    smem = 4 * (3 * c * cout + (zt + 2) * c * 32)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"gather9_conv_t: C={c}, Cout={cout} needs {smem} bytes of shared "
-                         "memory per block")
+    plan = conv_t_plan(c, cout, nz, tableT.element_size(), m)
     it = _stacked_identity(identity_tap, m, n)
-    # (9, 3C, Cout) f32: w9[t][dz*C + ci] = weights[dz, t // 3, t % 3, ci]
-    w9 = weights.float().permute(1, 2, 0, 3, 4).reshape(9, 3 * c, cout).contiguous()
+    packed = pack_conv_t_weights(weights, plan)
     out = torch.empty((nz * cout, m), dtype=tableT.dtype, device=tableT.device)
-    err = _lib().toda_gather9_conv_t(tableT.data_ptr(), idx.data_ptr(), w9.data_ptr(),
-                                     out.data_ptr(), n, m, nz, c, cout,
-                                     -1 if it is None else it, _DTYPE_CODE[tableT.dtype],
-                                     _stream(tableT))
+    err = _lib().toda_gather9_conv_t(tableT.data_ptr(), idx.data_ptr(), packed.data_ptr(),
+                                     out.data_ptr(), n, m, plan_ints(plan, CONV_T_PLAN_FIELDS),
+                                     -1 if it is None else it,
+                                     _DTYPE_CODE[tableT.dtype], _stream(tableT))
     _build.check(err, "gather9_conv_t")
     LAUNCHES["gather9_conv_t"] += 1
     return out
