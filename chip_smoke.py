@@ -12,7 +12,11 @@ Phases (none catches its own failure; any failure exits non-zero):
   4. full-width CenterPoint-Res (the TODA flagship widths) at the scale of
      bench.py's ``centerpoint`` workload: one forward records the inputs each
      kernel gets on the main path; every kernel is held against its plain
-     PyTorch version on those inputs and timed beside it;
+     PyTorch version on those inputs and timed beside it; then K5 exactly
+     against its plain version on calls no scene gives
+     (``phase_stress_unpack``: a partial last block, sums not 16-byte
+     aligned, c = 1 to 64, cpad 5, 6, 8 and 64, f32 and bf16, counts of 0
+     and x.5);
   5. with every launch counter at 0, ``eval_one_epoch`` over several batches
      of 4 scans: outputs must be finite and each kernel must have launched
      (K1 11 times per forward); then the steady-state predict throughput and
@@ -44,7 +48,12 @@ Phases (none catches its own failure; any failure exits non-zero):
      their plain versions), stage-2 ``make_train_step_cl`` steps; launches
      per step asserted, scans/s, peak memory, profiles; then two stage-2
      steps on the pseudo labels taken at score 0 (box-bearing frames, the
-     consistency matched at score 0): both consistency terms nonzero;
+     consistency matched at score 0): both consistency terms nonzero; then
+     the same recipe through the port's CLIs (``phase_cli``): the stage-1,
+     pseudo-label, stage-2 CL and test ``main``s on the same configs written
+     as YAML files, each stage's launches asserted, its checkpoint, the
+     pseudo-info pickle's structure and the eval result's keys checked, each
+     stage's wall time logged;
  13. tiny PartA2 in f32 on cuda and on cpu with the same weights and batch:
      the point and dense head outputs must agree, and the RoI head on the
      cpu's RoIs; once in full f32 and once with cuDNN's TF32 on, the
@@ -786,6 +795,54 @@ def phase_stress_tables():
         f"{STRESS_EXTRA} rows of lone pillars and pillars with no taps):")
     log_rows(rows)
     return rows
+
+
+UNPACK_STRESS_CELLS = 512 * 7 + 37  # K5's blocks take 512 cells: a partial last block
+
+
+def unpack_sums(gen, ncell, c, device):
+    """(ncell, c + 1) f32 voxelizer sums: counts in [0, 12] with every
+    integer and every x.5 (rint's ties, to even), zeros among them, and
+    feature sums of that many points."""
+    import torch
+
+    cnt = torch.randint(0, 25, (ncell,), generator=gen).float() / 2
+    feats = torch.randn((ncell, c), generator=gen) * (cnt[:, None] + 1) * 7
+    return torch.cat([feats, cnt[:, None]], 1).to(device)
+
+
+def phase_stress_unpack():
+    """K5 exactly against its plain version on calls no scene gives: a cell
+    count that leaves the last block partial, the sums 4, 8 and 12 bytes
+    past a 16-byte boundary (and aligned), c = 1, 4, 5 and 64, cpad 5, 6, 8
+    (and 64), f32 and bf16 outputs, counts of 0 and of x.5."""
+    import torch
+
+    from toda_tpu_torch.ops import gather
+
+    gen = torch.Generator().manual_seed(SEED)
+    cases = [(c, cpad) for c in (1, 4, 5) for cpad in (5, 6, 8) if cpad >= c] + [(64, 64)]
+    n = 0
+    for c, cpad in cases:
+        base = unpack_sums(gen, UNPACK_STRESS_CELLS, c, "cuda")
+        for shift in (0, 1, 2, 3):
+            buf = torch.empty(base.numel() + 4, dtype=torch.float32, device="cuda")
+            sums = buf[shift:shift + base.numel()].view_as(base)
+            sums.copy_(base)
+            assert sums.data_ptr() % 16 == 4 * shift and sums.is_contiguous()
+            for dtype in (torch.float32, torch.bfloat16):
+                y = gather.unpack_pillars(sums, c, cpad, dtype)
+                ref = gather.unpack_pillars_plain(sums, c, cpad, dtype)
+                torch.cuda.synchronize()
+                assert torch.equal(y, ref), \
+                    f"K5 stress c {c} cpad {cpad} {dtype} sums +{4 * shift} B: not exact"
+                n += 1
+    ties = (base[:, -1] * 2) % 2 == 1
+    log(f"phase stress K5: {n} calls exactly equal to the plain version ({len(cases)} (c, "
+        f"cpad) pairs from (1, 5) to (64, 64), the sums 0/4/8/12 bytes past 16-byte "
+        f"alignment, f32 and bf16 out, {UNPACK_STRESS_CELLS} cells = 7 blocks of 512 + 37, "
+        f"{int((base[:, -1] == 0).sum())} zero counts and {int(ties.sum())} x.5 counts in the "
+        f"last table)")
 
 
 def phase_train_kernels(state, step, batch):
@@ -1827,6 +1884,129 @@ def phase_toda():
     return rows, total, metrics
 
 
+# the keys and per-frame shapes of a pseudo info as JAX's
+# generate_pseudo_labels writes it with the perturbation
+# (toda_tpu/runtime/pseudo_label.py); K boxes, N padded points, V voxels
+PSEUDO_INFO_SHAPES = {"gt_boxes": ("K", 7), "gt_names": ("K",), "score": ("K",),
+                      "point_perturb": ("N", 3), "p_voxel_coords": ("V", 3),
+                      "p_voxel_perturb": ("V", 3), "p_voxel_size": (3,), "p_pc_range": (6,)}
+
+
+def plain_cfg(c):
+    """A config as plain dicts and lists (for yaml.safe_dump)."""
+    if isinstance(c, dict):
+        return {k: plain_cfg(v) for k, v in c.items()}
+    if isinstance(c, (list, tuple)):
+        return [plain_cfg(v) for v in c]
+    return c
+
+
+def phase_cli():
+    """The TODA recipe through the port's CLIs on the card, world size 1:
+    ``stage1_cutmix_train.main`` (one epoch of 3 steps, then its
+    target-domain eval), then ``generate_pseudo_labels.main --perturb`` with
+    its checkpoint, then ``stage2_mixup_train_cl.main`` (one epoch of 3 CL
+    steps, then its target-domain eval), then ``test.main`` on the stage-2
+    checkpoint. The
+    configs are ``toda_cfgs()`` at full width, written as YAML files, with
+    ``cfg.ROOT_DIR`` at build/cli. Each stage's launches are asserted, its
+    checkpoint and the pseudo-info pickle's structure checked, the eval
+    result's keys checked against JAX's. Returns the launches summed."""
+    import pickle
+    import shutil
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from toda_tpu_torch.config import cfg as global_cfg
+    from toda_tpu_torch.tools import (
+        generate_pseudo_labels,
+        stage1_cutmix_train,
+        stage2_mixup_train_cl,
+        test,
+    )
+
+    s1, s2, plcfg = toda_cfgs()
+    root = REPO / "build" / "cli"
+    shutil.rmtree(root, ignore_errors=True)
+    cfg_dir = root / "cfgs" / "toda"
+    cfg_dir.mkdir(parents=True)
+    pseudo = {"CLASS_NAMES": s1.CLASS_NAMES, "DATA_CONFIG": toda_domain_cfg(s1, 100),
+              "MODEL": s1.MODEL, "OPTIMIZATION": s1.OPTIMIZATION, "PSEUDO_LABEL": plcfg}
+    # both stages evaluate on the target domain after training (the stage
+    # configs' DATA_CONFIG_TEST is nuScenes' val split, which the repo does
+    # not hold)
+    s1.DATA_CONFIG_TEST = toda_domain_cfg(s1, 100)
+    s2.DATA_CONFIG_TEST = toda_domain_cfg(s2, 100)
+    files = {}
+    for name, c in (("stage1", s1), ("pseudo", pseudo), ("stage2", s2)):
+        c = {k: v for k, v in plain_cfg(c).items() if k not in ("TAG", "EXP_GROUP_PATH")}
+        files[name] = cfg_dir / f"{name}.yaml"
+        files[name].write_text(yaml.safe_dump(c))
+    global_cfg.ROOT_DIR = root
+    run = root / "output" / "toda"
+    b = ["--batch_size", str(BATCH)]
+    walls, total = {}, {}
+
+    def stage(name, fn, argv, want):
+        np.random.seed(SEED)
+        reset_launches()
+        t0 = time.time()
+        out = fn(argv)
+        torch.cuda.synchronize()
+        walls[name] = time.time() - t0
+        got = toda_launches()
+        assert got == want, f"CLI {name}: launches {got}, want {want}"
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+        log(f"phase CLI {name}: {walls[name]:.1f}s wall, launches {got}")
+        return out
+
+    stage("stage1_cutmix_train", stage1_cutmix_train.main,
+          ["--cfg_file", str(files["stage1"]), "--extra_tag", "cli", "--epochs", "1", *b],
+          times(TODA_PER_STEP["train"], 3, times(TODA_PER_STEP["predict"], 2)))
+    ck1 = run / "stage1" / "cli" / "ckpt" / "checkpoint_epoch_1.pth"
+    assert sorted(p.name for p in ck1.parent.iterdir()) == [ck1.name]
+    per_sweep = {k: TODA_PER_STEP["predict"][k] + v for k, v in TODA_PER_STEP["perturb"].items()}
+    out = stage("generate_pseudo_labels --perturb", generate_pseudo_labels.main,
+                ["--cfg_file", str(files["pseudo"]), "--ckpt", str(ck1), "--perturb",
+                 "--score_thresh", str(plcfg.SCORE_THRESH), "--eps", str(plcfg.EPS),
+                 "--output", str(root / "pseudo_infos.pkl"), *b],
+                times(per_sweep, 2))
+    with open(out, "rb") as f:
+        infos = pickle.load(f)
+    assert len(infos) == 2 * BATCH, len(infos)
+    for i, info in enumerate(infos):
+        assert set(info) == set(PSEUDO_INFO_SHAPES) | {"index"}, set(info)
+        k, v = len(info["gt_boxes"]), len(info["p_voxel_coords"])
+        for key, shape in PSEUDO_INFO_SHAPES.items():
+            want = tuple({"K": k, "V": v, "N": info["point_perturb"].shape[0]}.get(d, d)
+                         for d in shape)
+            assert np.asarray(info[key]).shape == want, (key, np.asarray(info[key]).shape)
+        assert info["p_voxel_coords"].dtype == np.int32 and info["index"] == i % TODA_SCENES
+        assert set(np.unique(info["point_perturb"])) <= {-1.0, 0.0, 1.0}
+    res2 = stage("stage2_mixup_train_cl", stage2_mixup_train_cl.main,
+                 ["--cfg_file", str(files["stage2"]), "--pseudo_info_path", str(out),
+                  "--pretrained_model", str(ck1), "--extra_tag", "cli", "--epochs", "1", *b],
+                 times(TODA_PER_STEP["cl"], 3, times(TODA_PER_STEP["predict"], 2)))
+    ck2 = run / "stage2" / "cli" / "ckpt" / "checkpoint_epoch_1.pth"
+    assert ck2.exists()
+    res = stage("test", test.main, ["--cfg_file", str(files["stage2"]), "--ckpt", str(ck2),
+                                    "--extra_tag", "cli", *b],
+                times(TODA_PER_STEP["predict"], 2))
+    keys = {"mAP", "sec_per_example", "compile_sec"} | {f"AP_{c}@0.5" for c in s2.CLASS_NAMES} \
+        | {f"recall/{t}" for t in s2.MODEL.POST_PROCESSING.RECALL_THRESH_LIST}
+    assert set(res) == set(res2) == keys, (set(res), keys)
+    assert all(math.isfinite(float(v)) for v in res.values()), res
+    log(f"phase CLI: the TODA recipe through the CLIs in {sum(walls.values()):.1f}s "
+        f"({', '.join(f'{k} {v:.1f}s' for k, v in walls.items())}); {len(infos)} pseudo infos "
+        f"with JAX's keys and shapes, {sum(len(i['gt_boxes']) for i in infos)} boxes; test "
+        f"result {{{', '.join(f'{k}: {float(v):.4g}' for k, v in sorted(res.items()))}}}; "
+        f"launches summed {total}")
+    return total
+
+
 def k10_work(table, idx, nz, cout, identity):
     """(bytes, flops) of one K10 call: the table columns it names (and its
     own, for the identity tap) read once, the (nz*Cout, M) output written
@@ -2080,6 +2260,7 @@ def main():
     log(f"full width: grid {dataset.grid_size.tolist()}, {first['points'].shape[1]} points/scan, "
         f"{int(first['points_mask'].sum(1).min())}-{int(first['points_mask'].sum(1).max())} real")
     rows = phase_kernels(bundle, first)
+    phase_stress_unpack()
     launches, scans_per_s = phase_main_path(bundle, cfg, loader, dataset)
     dev = bundle.to_device(first)
     phase_profile(lambda: bundle.predict(dev), "predict")
@@ -2111,11 +2292,13 @@ def main():
     trows, tl, toda = phase_toda()
     for key, rs in trows.items():
         rows[key].extend(rs)
-    launches["K1"] += tl["K1"]
-    launches["K2"] += tl["dx"] + tl["dW"] - tl["dW_raw"]
-    launches["K3"] += tl["dW_raw"]
-    for key in ("K4", "K5", "K6"):
-        launches[key] += tl[key]
+    cl = phase_cli()
+    for t in (tl, cl):
+        launches["K1"] += t["K1"]
+        launches["K2"] += t["dx"] + t["dW"] - t["dW_raw"]
+        launches["K3"] += t["dW_raw"]
+        for key in ("K4", "K5", "K6"):
+            launches[key] += t[key]
 
     # PartA2 inference at the Waymo config's widths
     phase_parta2_tiny_parity()
@@ -2201,7 +2384,8 @@ def main():
         f"convs of one SECOND forward, which no path runs through it. Launches are summed "
         f"over the counted runs: eval_one_epoch of each model, {TRAIN_STEPS} CenterPoint-Res "
         f"and {SECOND_TRAIN_STEPS} SECOND train steps, the TODA stages (stage-1 train_model, "
-        f"the pseudo-label sweep, {TODA_CL_STEPS} CL steps), K10's checks. "
+        f"the pseudo-label sweep, {TODA_CL_STEPS} CL steps), the same recipe through the "
+        f"CLIs (with its target-domain evals and test.py), K10's checks. "
         f"{scans_per_s:.2f} CenterPoint-Res predict scans/s, {train_scans:.2f} train scans/s, "
         f"train peak memory {train_peak:.2f} GiB, {parta2_scans:.2f} PartA2 predict scans/s, "
         f"{second_scans:.2f} SECOND predict scans/s, {second_train:.2f} SECOND train scans/s, "

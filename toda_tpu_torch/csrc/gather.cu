@@ -23,8 +23,17 @@
 // unpack_pillars_t). The TPU kernel undoes a bf16 hi/lo lane packing and
 // transposes with selector dots; in the port the sums are plain f32 rows
 // (cell, [feat..., count]) and the output is row-major (cell, cpad), so this
-// is one elementwise pass: mean = sum / max(round(count), 1), zero pad,
-// cast. Bound: bytes.
+// is one elementwise pass: mean = sum / max(rint(count), 1), zero pad, cast.
+// Bound: bytes (20-24 bytes read and 10-16 written a cell). Rows of 5 or 6
+// floats in and 5 or 8 2-byte elements out fit no vector width, so a block
+// owns a contiguous run of cells: it copies the run's sums into shared
+// memory with 16-byte loads (4-byte loads at an unaligned head or tail, the
+// staged run kept at the global address's offset within 16 bytes), each
+// thread then reads one cell's count once and divides its c features (a true
+// IEEE division and a round to nearest even: bit-equal to the plain
+// version), writing its output row into shared memory, and the block stores
+// its contiguous output span with 16-byte stores (element stores at the
+// span's unaligned head and tail).
 //
 // K6 gather_rows replaces pallas_gather.py _gather_kernel (public
 // gather_rows), the exact VJP of the dense scatter. The TPU kernel DMAs a
@@ -142,22 +151,83 @@ __global__ void scatter_rows_add_kernel(const T* __restrict__ g,
   atomicAdd(out + (int64_t)j * w + col, s);
 }
 
-// One thread per output element (cell, k) of the row-major (ncell, cpad)
-// output. sums rows are (c features, count).
-template <typename T>
-__global__ void unpack_pillars_kernel(const float* __restrict__ sums,
-                                      T* __restrict__ out, int64_t ncell,
-                                      int c, int cpad) {
-  int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= ncell * cpad) return;
-  int64_t cell = t / cpad;
-  int k = (int)(t - cell * cpad);
-  float v = 0.f;
-  if (k < c) {
-    const float* row = sums + cell * (c + 1);
-    v = row[k] / fmaxf(rintf(row[c]), 1.f);
+// The 16-byte chunks of a span of n elements of E bytes that starts `shift`
+// elements past a 16-byte boundary: [j0, j0 + nfull) lie wholly inside it;
+// the elements before chunk j0 (head) and from chunk j0 + nfull on (tail)
+// are copied one by one.
+template <int E>
+struct Span {
+  int shift, n, j0, nfull;
+  __device__ Span(int shift_, int n_) : shift(shift_), n(n_) {
+    constexpr int PER = 16 / E;
+    j0 = shift ? 1 : 0;
+    nfull = max((shift + n) / PER - j0, 0);
   }
-  out[t] = from_f32<T>(v);
+  __device__ int head() const { return min(j0 * (16 / E) - shift, n); }
+  __device__ int tail_start() const { return max((j0 + nfull) * (16 / E) - shift, head()); }
+};
+
+// Block b owns cells [b * cells, b * cells + cells) (fewer in the last
+// block). Shared memory: the staged sums (cells * (c + 1) + 4 floats), then
+// the staged output (cells * cpad + 16 / sizeof(T) elements).
+template <typename T>
+__global__ void __launch_bounds__(256) unpack_pillars_kernel(
+    const float* __restrict__ sums, T* __restrict__ out, int64_t ncell, int c, int cpad,
+    int cells) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int EO = (int)sizeof(T);
+  const int row = c + 1;
+  const int64_t cell0 = (int64_t)blockIdx.x * cells;
+  const int n = (int)min((int64_t)cells, ncell - cell0);
+  float* s_in = (float*)smem;
+  T* s_out = (T*)(smem + (((size_t)cells * row + 4) * 4 + 15) / 16 * 16);
+
+  // the run's sums in, at their offset within 16 bytes
+  const float* src = sums + cell0 * row;
+  const Span<4> in((int)(((uintptr_t)src & 15) >> 2), n * row);
+  const float4* src4 = (const float4*)(src - in.shift);
+  float4* s_in4 = (float4*)s_in;
+  for (int j = threadIdx.x; j < in.nfull; j += blockDim.x)
+    s_in4[in.j0 + j] = __ldg(src4 + in.j0 + j);
+  for (int k = threadIdx.x; k < in.head(); k += blockDim.x)
+    s_in[in.shift + k] = __ldg(src + k);
+  for (int k = in.tail_start() + threadIdx.x; k < in.n; k += blockDim.x)
+    s_in[in.shift + k] = __ldg(src + k);
+  __syncthreads();
+
+  // one cell a thread: its count read and rounded once, its row written out
+  T* dst = out + cell0 * cpad;
+  const Span<EO> os((int)(((uintptr_t)dst & 15) / EO), n * cpad);
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const float* r = s_in + in.shift + i * row;
+    const float d = fmaxf(rintf(r[c]), 1.f);
+    const int e0 = os.shift + i * cpad;
+    int k = 0;
+    if constexpr (EO == 2) {
+      // pairs of bf16 as one 4-byte store where the pair is 4-byte aligned
+      uint16_t* o = (uint16_t*)s_out;
+      auto bits = [&](int kk) -> uint16_t {
+        return kk < c ? __bfloat16_as_ushort(__float2bfloat16(r[kk] / d)) : (uint16_t)0;
+      };
+      if (e0 & 1) { o[e0] = bits(0); k = 1; }
+      for (; k + 1 < cpad; k += 2)
+        *(uint32_t*)(o + e0 + k) = (uint32_t)bits(k) | ((uint32_t)bits(k + 1) << 16);
+      if (k < cpad) o[e0 + k] = bits(k);
+    } else {
+      for (; k < cpad; ++k) s_out[e0 + k] = k < c ? from_f32<T>(r[k] / d) : T(0.f);
+    }
+  }
+  __syncthreads();
+
+  // the output span out with 16-byte stores
+  uint4* dst4 = (uint4*)(dst - os.shift);
+  const uint4* s_out4 = (const uint4*)s_out;
+  for (int j = threadIdx.x; j < os.nfull; j += blockDim.x)
+    dst4[os.j0 + j] = s_out4[os.j0 + j];
+  for (int k = threadIdx.x; k < os.head(); k += blockDim.x)
+    dst[k] = s_out[os.shift + k];
+  for (int k = os.tail_start() + threadIdx.x; k < os.n; k += blockDim.x)
+    dst[k] = s_out[os.shift + k];
 }
 
 // One thread per word of the (m, row_words) output.
@@ -650,6 +720,29 @@ inline unsigned blocks_for(int64_t n) {
   return (unsigned)((n + kThreads - 1) / kThreads);
 }
 
+// K5's launch: a block takes up to 512 cells, fewer where their staged
+// rows would pass 48 KB of shared memory.
+template <typename T>
+int launch_unpack(const float* sums, T* out, int64_t ncell, int c, int cpad,
+                  cudaStream_t stream) {
+  auto smem = [&](int cells) {
+    return (((size_t)cells * (c + 1) + 4) * 4 + 15) / 16 * 16 +
+           ((size_t)cells * cpad + 16 / sizeof(T)) * sizeof(T);
+  };
+  int cells = 512;
+  while (cells > 32 && smem(cells) > (48 << 10)) cells /= 2;
+  const size_t bytes = smem(cells);
+  if (bytes > (48 << 10)) {
+    cudaError_t err = cudaFuncSetAttribute(
+        unpack_pillars_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int64_t blocks = (ncell + cells - 1) / cells;
+  unpack_pillars_kernel<T><<<(unsigned)blocks, kThreads, bytes, stream>>>(sums, out, ncell, c,
+                                                                          cpad, cells);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -673,17 +766,9 @@ int toda_scatter_rows_add(const void* g, const int32_t* idx, float* out,
 // dtype: 0 = float32, 1 = bfloat16 (for out).
 int toda_unpack_pillars(const float* sums, void* out, int64_t ncell, int c,
                         int cpad, int dtype, cudaStream_t stream) {
-  if (ncell * cpad > 0) {
-    if (dtype == 0) {
-      unpack_pillars_kernel<float><<<blocks_for(ncell * cpad), kThreads, 0, stream>>>(
-          sums, (float*)out, ncell, c, cpad);
-    } else {
-      unpack_pillars_kernel<__nv_bfloat16>
-          <<<blocks_for(ncell * cpad), kThreads, 0, stream>>>(
-              sums, (__nv_bfloat16*)out, ncell, c, cpad);
-    }
-  }
-  return (int)cudaGetLastError();
+  if (ncell * cpad == 0) return (int)cudaGetLastError();
+  return dtype == 0 ? launch_unpack(sums, (float*)out, ncell, c, cpad, stream)
+                    : launch_unpack(sums, (__nv_bfloat16*)out, ncell, c, cpad, stream);
 }
 
 // table: (n, row_bytes) bytes per row; out: (m, row_bytes). word: 16, 4 or

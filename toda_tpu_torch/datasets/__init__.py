@@ -3,10 +3,11 @@
 The port's own copy of the loader in ``toda_tpu/datasets/__init__.py``: a
 host loader with static-shape numpy collation and a background
 thread that prepares the next batches while the device runs. The model entry
-points move the numpy batches to their device. Single process: the
-rank-strided distributed loader comes with the distributed-runtime slice.
-``build_cutmix_dataloader`` and ``build_mixup_dataloader`` are the TODA
-stages' loaders (:175-189).
+points move the numpy batches to their device. In a data-parallel run each
+rank reads the frames ``indices[rank::world]`` of the index list padded to a
+multiple of the world size (:59-67, 158-166), so every rank takes the same
+number of steps. ``build_cutmix_dataloader`` and ``build_mixup_dataloader``
+are the TODA stages' loaders (:175-189).
 """
 
 import pickle
@@ -15,6 +16,7 @@ import threading
 
 import numpy as np
 
+from ..parallel.mesh import get_dist_info
 from .synthetic.synthetic_dataset import SyntheticDataset
 
 
@@ -24,16 +26,20 @@ class DataLoader:
     Test mode: frames in order, the last batch filled up with the first
     frames. Training: frames in the permutation of ``RandomState(epoch)``
     (the JAX loader's at seed 0; ``set_epoch`` moves it on), the last
-    partial batch dropped. prefetch > 0 runs __getitem__ + collate on a
-    background thread with a bounded queue, overlapping host preprocessing
-    with the device step.
+    partial batch dropped. With ``world_size`` > 1 the rank takes every
+    world-th frame from its rank on, of the list padded with its own head
+    to a multiple of the world size. prefetch > 0 runs __getitem__ +
+    collate on a background thread with a bounded queue, overlapping host
+    preprocessing with the device step.
     """
 
-    def __init__(self, dataset, batch_size, training=False, prefetch=2):
+    def __init__(self, dataset, batch_size, training=False, prefetch=2, rank=0,
+                 world_size=1):
         self.dataset = dataset
         self.batch_size = batch_size
         self.training = training
         self.prefetch = prefetch
+        self.rank, self.world_size = rank, world_size
         self.epoch = 0
 
     def set_epoch(self, epoch):
@@ -41,14 +47,18 @@ class DataLoader:
 
     def _indices(self):
         n = len(self.dataset)
-        if self.training:
-            return np.random.RandomState(self.epoch).permutation(n)
-        return np.arange(n)
+        idx = np.random.RandomState(self.epoch).permutation(n) if self.training \
+            else np.arange(n)
+        if self.world_size > 1:
+            idx = np.concatenate([idx, idx[:(-n) % self.world_size]])
+            idx = idx[self.rank::self.world_size]
+        return idx
 
     def __len__(self):
+        n = -(-len(self.dataset) // self.world_size)
         if self.training:
-            return len(self.dataset) // self.batch_size
-        return (len(self.dataset) + self.batch_size - 1) // self.batch_size
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size
 
     def _make_batch(self, idx, b):
         chunk = idx[b * self.batch_size : (b + 1) * self.batch_size]
@@ -119,14 +129,15 @@ def build_dataset(dataset_cfg, class_names, training=False, root_path=None, logg
 def build_dataloader(dataset_cfg, class_names, batch_size, dist=False, root_path=None,
                      workers=0, logger=None, training=False, **dataset_kwargs):
     """Returns (dataset, dataloader, sampler_like) like ``toda_tpu``'s
-    (training: shuffled, last partial batch dropped). ``dataset_kwargs``
-    go to the dataset (``pseudo_infos`` of a MixUpDataset)."""
-    if dist:
-        raise NotImplementedError("the distributed loader is not ported yet")
+    (training: shuffled, last partial batch dropped). With ``dist`` the
+    loader takes this process's rank-strided share (``batch_size`` is then
+    the per-rank batch). ``dataset_kwargs`` go to the dataset
+    (``pseudo_infos`` of a MixUpDataset)."""
     dataset = build_dataset(dataset_cfg, class_names, training, root_path, logger,
                             **dataset_kwargs)
+    rank, world = get_dist_info() if dist else (0, 1)
     loader = DataLoader(dataset, batch_size=batch_size, training=training,
-                        prefetch=workers if workers > 0 else 2)
+                        prefetch=workers if workers > 0 else 2, rank=rank, world_size=world)
     return dataset, loader, loader
 
 

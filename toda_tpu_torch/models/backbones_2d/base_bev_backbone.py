@@ -11,12 +11,15 @@ conventions are reproduced explicitly:
 The blocks compute in the input's dtype (bf16 when the 3D backbone runs in
 bf16, as in JAX); the output is f32. BatchNorm follows flax: in training, f32
 batch statistics with the biased variance and running statistics updated
-with momentum 0.99 (``bn_apply``).
+with momentum 0.99 (``bn_apply``); a ``GlobalBatchNorm2d`` (data-parallel
+runs) takes them over the global batch.
 """
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ...parallel.mesh import global_count, global_moments
 
 
 def same_pad(x, k, s):
@@ -54,8 +57,14 @@ def bn_apply(x, bn):
         shift = bn.bias - bn.running_mean * scale
         return x * scale.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
     xf = x.float()
-    mean = xf.mean((0, 2, 3))
-    var = torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean, min=0.0)
+    if isinstance(bn, GlobalBatchNorm2d):
+        sums = global_moments(torch.stack([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3))]))
+        n = global_count(torch.tensor(float(xf.numel() // xf.shape[1]), device=x.device))
+        mean = sums[0] / n
+        var = torch.clamp(sums[1] / n - mean * mean, min=0.0)
+    else:
+        mean = xf.mean((0, 2, 3))
+        var = torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean, min=0.0)
     with torch.no_grad():
         m = FLAX_MOMENTUM
         bn.running_mean.copy_(m * bn.running_mean + (1 - m) * mean)
@@ -67,6 +76,24 @@ def bn_apply(x, bn):
 
 def make_bn(c):
     return nn.BatchNorm2d(c, eps=1e-3, momentum=1 - FLAX_MOMENTUM)
+
+
+class GlobalBatchNorm2d(nn.BatchNorm2d):
+    """A ``make_bn`` BatchNorm of a data-parallel run: ``bn_apply`` takes
+    its training statistics over the global batch (the sums all-reduced
+    across ranks, differentiably), as JAX's one step over the sharded global
+    batch does. ``parallel.convert_global_batchnorm`` swaps it in at world
+    size > 1."""
+
+    @classmethod
+    def from_batchnorm(cls, bn):
+        """A GlobalBatchNorm2d holding ``bn``'s parameter and buffer
+        tensors themselves."""
+        new = cls(bn.num_features, eps=bn.eps, momentum=bn.momentum, device=bn.weight.device)
+        new.weight, new.bias = bn.weight, bn.bias
+        new.running_mean, new.running_var = bn.running_mean, bn.running_var
+        new.num_batches_tracked = bn.num_batches_tracked
+        return new.train(bn.training)
 
 
 class BaseBEVBackbone(nn.Module):

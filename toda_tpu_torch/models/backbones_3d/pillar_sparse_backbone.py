@@ -32,6 +32,7 @@ import torch
 from torch import nn
 
 from ...ops.fused_conv import fused_bnconv9_ad, out_depth
+from ...parallel.mesh import global_count, global_moments
 from ..backbones_2d.base_bev_backbone import FLAX_MOMENTUM
 from ..model_utils.masked_norm import MaskedBatchNorm
 from ...ops.pillar_sparse import (
@@ -109,7 +110,9 @@ class MaskedBatchNormT(nn.Module):
     momentum 0.99; eval: the running statistics. ``affine`` gives the
     per-channel (scale, shift) for the fused contract's next layer to apply;
     ``forward`` applies it to a transposed (nz, C, M) tensor, as the legacy
-    contract does."""
+    contract does. In a data-parallel run the training statistics are the
+    global batch's: the sums and the count are all-reduced across ranks, the
+    sums differentiably (``parallel.mesh``; identities at world size 1)."""
 
     def __init__(self, num_features, eps=1e-3):
         super().__init__()
@@ -131,10 +134,11 @@ class MaskedBatchNormT(nn.Module):
                     (self.bias - self.running_mean * inv).float().contiguous())
         nz, dims = (x.shape[0], (0, 2)) if transposed else (x.shape[1], (0, 1))
         valid = maskf[None, None, :] if transposed else maskf[:, None, None]
-        n = torch.clamp(maskf.sum(dtype=torch.float32) * nz, min=1.0)
         xf = torch.where(valid, x, torch.zeros((), dtype=x.dtype, device=x.device)).float()
-        mean = xf.sum(dims) / n
-        var = torch.clamp((xf * xf).sum(dims) / n - mean * mean, min=0.0)
+        n = torch.clamp(global_count(maskf.sum(dtype=torch.float32)) * nz, min=1.0)
+        sums = global_moments(torch.stack([xf.sum(dims), (xf * xf).sum(dims)]))
+        mean = sums[0] / n
+        var = torch.clamp(sums[1] / n - mean * mean, min=0.0)
         with torch.no_grad():
             m = FLAX_MOMENTUM
             self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)

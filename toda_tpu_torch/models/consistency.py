@@ -14,6 +14,8 @@ import math
 
 import torch
 
+from ..parallel.mesh import global_count
+
 
 def reverse_boxes(boxes, aug_vec):
     """Undo the world augmentations on boxes (B, K, 7+) -> (B, K, 7), for
@@ -47,7 +49,8 @@ def consistency_loss(boxes_a, scores_a, boxes_b, scores_b, score_thresh=0.3, mat
     ``score_thresh`` is matched to the nearest such box centre of B (ties
     to the lower index); pairs closer than ``match_radius`` add the
     smooth-L1 (beta 1) of the centre difference and the L1 of the size
-    difference, averaged over the matched pairs (at least 1)."""
+    difference, averaged over the matched pairs (at least 1; the global
+    batch's pairs in a data-parallel run)."""
     va = scores_a > score_thresh
     vb = scores_b > score_thresh
     ca, cb = boxes_a[..., :3], boxes_b[..., :3]
@@ -63,5 +66,5 @@ def consistency_loss(boxes_a, scores_a, boxes_b, scores_b, score_thresh=0.3, mat
     size = (boxes_a[..., 3:6] - nb[..., 3:6]).abs().sum(-1)
 
     w = matched.to(boxes_a.dtype)
-    denom = torch.clamp(w.sum(), min=1.0)
+    denom = torch.clamp(global_count(w.sum()), min=1.0)
     return (center * w).sum() / denom, (size * w).sum() / denom

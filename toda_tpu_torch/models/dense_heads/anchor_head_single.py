@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...parallel.mesh import get_world_size
 from ...utils import loss_utils
 from ...utils.common_utils import limit_period_torch
 
@@ -69,10 +70,11 @@ def get_direction_target(gt_heading, dir_offset, num_bins):
 
 def anchor_head_loss(batch_dict, targets, model_cfg, num_class):
     """Class + box + direction losses of the anchor head (:65-111), each
-    summed and divided by the batch size: (total, tb dict)."""
+    summed and divided by the batch size (the global batch's in a
+    data-parallel run, whose ranks hold equal shares): (total, tb dict)."""
     lw = model_cfg["LOSS_CONFIG"]["LOSS_WEIGHTS"]
     cls_preds, box_preds = batch_dict["cls_preds"], batch_dict["box_preds"]
-    batch_size = cls_preds.shape[0]
+    batch_size = cls_preds.shape[0] * get_world_size()
     labels = targets["box_cls_labels"]
     reg_weights = targets["reg_weights"]
 

@@ -1,4 +1,4 @@
-"""Checkpoint save, restore and resume, single process.
+"""Checkpoint save, restore and resume.
 
 Counterpart of ``toda_tpu/runtime/checkpoint.py`` (``save_checkpoint`` with
 FIFO pruning, ``load_checkpoint``, ``load_params_only``,
@@ -7,12 +7,15 @@ FIFO pruning, ``load_checkpoint``, ``load_params_only``,
 state dict (parameters and BatchNorm statistics), the optimizer's moments and
 step count, and the epoch. JAX's training state is one pytree; the port's
 lives in two places, the bundle's module and the optimizer, so both are
-passed.
+passed. In a data-parallel run the save is collective: every rank calls it,
+rank 0 writes (the ranks hold the same state) and all wait for the file.
 """
 
 from pathlib import Path
 
 import torch
+
+from ..utils import commu_utils
 
 
 def _ckpt_path(ckpt_dir, epoch):
@@ -36,15 +39,18 @@ def scan_dir_for_ckpts(ckpt_dir):
 
 def save_checkpoint(ckpt_dir, bundle, state, epoch, max_keep=30):
     """Write ``checkpoint_epoch_<epoch>.pth`` after removing the oldest
-    checkpoints beyond ``max_keep - 1``; returns its path."""
+    checkpoints beyond ``max_keep - 1``; returns its path. Collective in a
+    data-parallel run (rank 0 writes, every rank waits for it)."""
     ckpt_dir = Path(ckpt_dir)
-    ckpt_dir.mkdir(parents=True, exist_ok=True)
-    existing = scan_dir_for_ckpts(ckpt_dir)
-    for stale in existing[: max(0, len(existing) - max_keep + 1)]:
-        stale.unlink()
     path = _ckpt_path(ckpt_dir, epoch)
-    torch.save({"model": bundle.module.state_dict(), "optimizer": state.state_dict(),
-                "epoch": int(epoch)}, path)
+    if commu_utils.get_rank() == 0:
+        ckpt_dir.mkdir(parents=True, exist_ok=True)
+        existing = scan_dir_for_ckpts(ckpt_dir)
+        for stale in existing[: max(0, len(existing) - max_keep + 1)]:
+            stale.unlink()
+        torch.save({"model": bundle.module.state_dict(), "optimizer": state.state_dict(),
+                    "epoch": int(epoch)}, path)
+    commu_utils.synchronize()
     return path
 
 
@@ -56,6 +62,12 @@ def load_checkpoint(path, bundle, state=None):
     if state is not None:
         state.load_state_dict(payload["optimizer"])
     return payload["epoch"]
+
+
+def load_weights(path, device="cpu"):
+    """A checkpoint's module state dict (parameters and BatchNorm
+    statistics) on ``device``."""
+    return torch.load(path, map_location=device, weights_only=True)["model"]
 
 
 def load_params_only(path, bundle):

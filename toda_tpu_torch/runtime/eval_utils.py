@@ -1,16 +1,40 @@
 """Evaluation harness: predict sweep on the device + host metric computation.
 
-Counterpart of ``toda_tpu/runtime/eval_utils.py`` (``make_predict_step``,
-``compute_recall``, ``eval_one_epoch``) in one process. The cross-process
-merge of detections and recall counters comes with the distributed-runtime
-slice.
+Counterpart of ``toda_tpu/runtime/eval_utils.py`` (``evaluate_target_domain``
+:22-48, ``make_predict_step``, ``compute_recall``, ``eval_one_epoch``). In a
+data-parallel run each process predicts its rank-strided share of the
+frames; ``eval_one_epoch`` then merges the detections back into dataset
+order (``commu_utils.merge_results_dist``), sums the recall counters,
+averages sec/example over the ranks and computes the dataset metric on rank
+0, as JAX's does (:149-170).
 """
 
 import time
 
 import numpy as np
 
-from ..utils import box_utils
+from ..utils import box_utils, commu_utils
+
+
+def evaluate_target_domain(cfg, weights, batch_size, device, logger=None, dist=False):
+    """Evaluate a detector's ``weights`` (a module state dict) on the
+    target domain after a TODA stage: ``DATA_CONFIG_TEST`` (else
+    ``DATA_CONFIG``), through a bundle built over that dataset on
+    ``device`` (the stage's bundle was built over the mix dataset, whose
+    grid metadata is not the eval domain's). Returns (result_dict,
+    det_annos)."""
+    from ..datasets import build_dataloader
+    from ..models import build_network
+
+    eval_cfg = cfg.get("DATA_CONFIG_TEST", cfg.DATA_CONFIG)
+    ds, loader, _ = build_dataloader(eval_cfg, cfg.CLASS_NAMES, batch_size=batch_size,
+                                     dist=dist, training=False, logger=logger)
+    bundle = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), ds, device=device)
+    bundle.module.load_state_dict(weights, strict=True)
+    result, annos = eval_one_epoch(bundle, loader, ds, cfg.CLASS_NAMES, logger=logger)
+    if logger:
+        logger.info("target-domain eval result: %s", result)
+    return result, annos
 
 
 def make_predict_step(bundle):
@@ -45,6 +69,14 @@ def compute_recall(pred_boxes, pred_mask, gt_boxes, thresh_list, rois=None, roi_
     return out
 
 
+def _recall_rates(recall, thresh_list, has_rois):
+    out = {f"recall/{t}": recall[f"recall_{t}"] / max(recall["gt"], 1) for t in thresh_list}
+    if has_rois:
+        out.update({f"recall/roi_{t}": recall[f"recall_roi_{t}"] / max(recall["gt"], 1)
+                    for t in thresh_list})
+    return out
+
+
 def eval_one_epoch(bundle, loader, dataset, class_names, logger=None, predict_step=None):
     """Predict every batch of ``loader``, then recall and the dataset metric.
 
@@ -52,7 +84,11 @@ def eval_one_epoch(bundle, loader, dataset, class_names, logger=None, predict_st
     metrics, ``recall/<t>`` (and ``recall/roi_<t>`` when the detections
     carry first-stage RoIs), ``sec_per_example`` (steady state, from the
     second batch on, host clock around device work that ends in a copy to the
-    host) and ``first_batch_sec``."""
+    host) and ``compile_sec`` (JAX's name: the first batch's seconds, which
+    hold its compile there and the kernels' first launches here). In a
+    data-parallel run every rank returns the merged det_annos; rank 0 alone
+    computes the dataset metric, the others return the recall rates and the
+    timings."""
     predict_step = predict_step or make_predict_step(bundle)
     thresh_list = bundle.post_cfg.get("RECALL_THRESH_LIST", [0.3, 0.5, 0.7])
     det_annos = []
@@ -93,19 +129,22 @@ def eval_one_epoch(bundle, loader, dataset, class_names, logger=None, predict_st
         sec_per_ex = (time.time() - steady_t0) / steady_frames
     else:
         sec_per_ex = (time.time() - t0) / max(n_frames, 1)
+    timings = {"sec_per_example": sec_per_ex, "compile_sec": first_batch_sec or 0.0}
+
+    if commu_utils.get_world_size() > 1:
+        det_annos = commu_utils.merge_results_dist(det_annos, len(dataset))
+        recall = {k: int(v) for k, v in commu_utils.reduce_dict(recall, average=False).items()}
+        timings["sec_per_example"] = commu_utils.average_reduce_value(sec_per_ex)
+        if commu_utils.get_rank() != 0:
+            return {**_recall_rates(recall, thresh_list, has_rois), **timings}, det_annos
 
     if logger:
         logger.info("eval: %.4f sec/example steady-state over %d frames "
-                    "(first batch: %.1fs)", sec_per_ex, n_frames, first_batch_sec or 0.0)
+                    "(first batch: %.1fs)", timings["sec_per_example"], n_frames,
+                    timings["compile_sec"])
     result_str, result_dict = dataset.evaluation(det_annos, class_names)
     if logger:
         logger.info("\n%s", result_str)
-    result_dict.update(
-        {f"recall/{t}": recall[f"recall_{t}"] / max(recall["gt"], 1) for t in thresh_list})
-    if has_rois:
-        result_dict.update({f"recall/roi_{t}": recall[f"recall_roi_{t}"] / max(recall["gt"], 1)
-                            for t in thresh_list})
-    result_dict["sec_per_example"] = sec_per_ex
-    result_dict["first_batch_sec"] = first_batch_sec or 0.0
+    result_dict.update(_recall_rates(recall, thresh_list, has_rois))
+    result_dict.update(timings)
     return result_dict, det_annos
-

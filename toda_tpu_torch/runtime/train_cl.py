@@ -5,10 +5,12 @@ Counterpart of ``toda_tpu/runtime/train_cl.py`` (``select_cl_arrays``,
 training mode, then the org view's (BatchNorm running statistics updated by
 the adv batch, then by the org batch, as JAX threads them), both detection
 losses, each view's top-K decoded boxes mapped back to the scene's frame,
-the consistency loss, one backward through the sum and one AdamW update.
+the consistency loss, one backward through the sum and one AdamW update. A
+data-parallel run reduces as ``train_utils.make_train_step`` does.
 """
 
 from ..models.consistency import consistency_loss, reverse_boxes
+from ..parallel.mesh import allreduce_grads, sum_scalars
 
 CL_ARRAY_KEYS = ("points", "points_mask", "gt_boxes", "aug_vector")
 
@@ -42,9 +44,10 @@ def make_train_step_cl(bundle, consistency_weight=0.1, score_thresh=0.3, topk=32
             reverse_boxes(boxes_o, org["aug_vector"]), scores_o, score_thresh=score_thresh)
         total = loss_a + loss_o + consistency_weight * (c_loss + s_loss)
         total.backward()
+        allreduce_grads(state.params)
         state.step()
         tb = {"loss": total, "loss_adv": loss_a, "loss_org": loss_o,
               "consistency_center": c_loss, "consistency_size": s_loss}
-        return state, {k: v.detach() for k, v in tb.items()}
+        return state, sum_scalars({k: v.detach() for k, v in tb.items()})
 
     return train_step

@@ -1,8 +1,12 @@
 """Common host helpers and the port's device rule.
 
-The numpy helpers are the port's own copies of the ones in
-``toda_tpu/utils/common_utils.py`` that the data path needs.
+The numpy helpers, the logger and the seed setter are the port's own copies
+of the ones in ``toda_tpu/utils/common_utils.py`` that the data path and
+the CLIs need.
 """
+
+import logging
+import random
 
 import numpy as np
 import torch
@@ -85,3 +89,29 @@ def pad_to(arr, size, axis=0, value=0.0):
     pad_width = [(0, 0)] * arr.ndim
     pad_width[axis] = (0, size - n)
     return np.pad(arr, pad_width, mode="constant", constant_values=value)
+
+
+def create_logger(log_file=None, rank=0, log_level=logging.INFO):
+    """A logger to the console and ``log_file``; ranks other than 0 log
+    errors only."""
+    logger = logging.getLogger(str(log_file) if log_file else __name__)
+    level = log_level if rank == 0 else logging.ERROR
+    logger.setLevel(level)
+    formatter = logging.Formatter("%(asctime)s  %(levelname)5s  %(message)s")
+    if not logger.handlers:
+        handlers = [logging.StreamHandler()]
+        if log_file is not None:
+            handlers.append(logging.FileHandler(log_file))
+        for h in handlers:
+            h.setLevel(level)
+            h.setFormatter(formatter)
+            logger.addHandler(h)
+    logger.propagate = False
+    return logger
+
+
+def set_random_seed(seed):
+    """Seed Python's, numpy's and torch's generators."""
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)

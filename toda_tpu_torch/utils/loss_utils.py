@@ -2,10 +2,14 @@
 ``sigmoid_focal_cls_loss``, ``smooth_l1_loss``, ``weighted_smooth_l1_loss``
 and ``weighted_cross_entropy_loss`` (:14-69) and CenterPoint's
 ``focal_loss_centernet`` and ``reg_loss_centernet`` (:104-140) from
-``toda_tpu/utils/loss_utils.py``."""
+``toda_tpu/utils/loss_utils.py``. In a data-parallel run the CenterPoint
+losses divide by the global batch's counts (``parallel.mesh.global_count``),
+so each rank's value is its share of the global batch's loss."""
 
 import torch
 import torch.nn.functional as F
+
+from ..parallel.mesh import global_count
 
 
 def sigmoid_focal_cls_loss(logits, targets, weights, gamma=2.0, alpha=0.25):
@@ -58,7 +62,7 @@ def focal_loss_centernet(pred, gt):
     pred = torch.clamp(pred, 1e-4, 1 - 1e-4)
     pos_loss = (torch.log(pred) * torch.pow(1 - pred, 2) * pos_inds).sum()
     neg_loss = (torch.log(1 - pred) * torch.pow(pred, 2) * neg_weights * neg_inds).sum()
-    num_pos = pos_inds.sum()
+    num_pos = global_count(pos_inds.sum())
     return torch.where(num_pos == 0, -neg_loss,
                        -(pos_loss + neg_loss) / torch.clamp(num_pos, min=1.0))
 
@@ -76,4 +80,4 @@ def reg_loss_centernet(pred_feat, target, ind, mask):
     gathered = torch.gather(pred_feat, 1, ind.long()[..., None].expand(-1, -1, pred_feat.shape[-1]))
     target = torch.where(torch.isnan(target), gathered, target)
     loss = torch.abs(gathered - target) * mask[..., None].to(pred_feat.dtype)
-    return loss.sum() / torch.clamp(mask.sum().to(pred_feat.dtype), min=1.0)
+    return loss.sum() / torch.clamp(global_count(mask.sum().to(pred_feat.dtype)), min=1.0)
