@@ -41,19 +41,31 @@ Phases (none catches its own failure; any failure exits non-zero):
  11. tiny CenterPoint-Res in f32 (``phase_toda_tiny``): the points gradient
      of the eval-mode loss (the pseudo-label perturbation's) and one
      ``make_train_step_cl`` step, cuda vs cpu;
- 12. the TODA stages at full width (``phase_toda``, ``toda_cfgs``): stage 1
-     through ``train_model`` over one epoch of the CutMix loader, its
-     checkpoint round trip, ``generate_pseudo_labels`` with the perturbation
-     (the first conv's act=False dx and K4's VJP, a K6 gather, held against
-     their plain versions), stage-2 ``make_train_step_cl`` steps; launches
-     per step asserted, scans/s, peak memory, profiles; then two stage-2
-     steps on the pseudo labels taken at score 0 (box-bearing frames, the
+ 12. the real-format data path (``phase_data``): nuScenes (raw tables,
+     10-sweep HDL-32E scans) and Waymo (``.tfrecord`` range images)
+     fabricated from the seed into a temporary directory under build/
+     (removed at exit), infos and gt databases from the port's
+     ``create_infos``, the labelled-percentage splits; every split the
+     stage configs read holds two batches; the host loader's rate, points
+     a scan before and after ``sample_points`` and occupied pillars against
+     MAX_PILLARS logged; then the TODA stages at full width on the stage
+     configs' own Waymo and nuScenes domain configs over those files
+     (``phase_toda``, ``toda_cfgs``): stage 1 through ``train_model`` over
+     one epoch of the CutMix loader, its checkpoint round trip, the fused
+     convs' calls of one stage-1 forward and train step held against their
+     plain versions (logged, not summed into the kernels line),
+     ``generate_pseudo_labels`` with the perturbation over the unlabelled
+     split (the first conv's act=False dx and K4's VJP, a K6 gather, held
+     against their plain versions), stage-2 ``make_train_step_cl`` steps
+     with the pseudo frames read through their 'frame_info'; launches per
+     step asserted, scans/s, peak memory, profiles; then two stage-2 steps
+     on the pseudo labels taken at score 0 (box-bearing frames, the
      consistency matched at score 0): both consistency terms nonzero; then
      the same recipe through the port's CLIs (``phase_cli``): the stage-1,
      pseudo-label, stage-2 CL and test ``main``s on the same configs written
      as YAML files, each stage's launches asserted, its checkpoint, the
-     pseudo-info pickle's structure and the eval result's keys checked, each
-     stage's wall time logged;
+     pseudo-info pickle's structure and the nuScenes metric's keys (finite)
+     checked, each stage's wall time logged;
  13. tiny PartA2 in f32 on cuda and on cpu with the same weights and batch:
      the point and dense head outputs must agree, and the RoI head on the
      cpu's RoIs; once in full f32 and once with cuDNN's TF32 on, the
@@ -96,8 +108,10 @@ missing.
 import itertools
 import json
 import math
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -110,7 +124,6 @@ SECOND_TRAIN_STEPS = 5
 SEED = 0
 TRAIN_STEPS = 20
 SCHEDULE_STEPS = 100  # OneCycle length: every step here stays in its warm-up
-TODA_SCENES = 6  # frames per synthetic domain: a stage-1 epoch is 12 frames, 3 steps
 TODA_CL_STEPS = 3
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak, H100 SXM data sheet
@@ -231,60 +244,558 @@ def second_cfg():
     return cfg
 
 
-def toda_domain_cfg(stage_cfg, seed):
-    """One domain of the TODA slice in place of the stage configs' Waymo and
-    nuScenes info files: ``tools/cfgs/dataset_configs/synthetic_dataset.yaml``
-    scenes from ``seed`` (0 the source, 100 the target, as
-    tests/test_toda_pipeline.py), on the stage config's range and
-    processors, TODA_SCENES frames of 20-40 objects and 120k background
-    points (the stage configs sample 131072 points a scan), at most 256 gt
-    boxes; test mode presents the training scenes (TEST_SEED_OFFSET 0), so
-    the pseudo labels name frames that stage 2 reads back."""
-    from toda_tpu_torch.config import EDict, cfg_from_yaml_file
+# ---------------------------------------------------------------------------
+# real-format domains, fabricated: nuScenes and Waymo files from a seed
+# ---------------------------------------------------------------------------
 
-    d = cfg_from_yaml_file(str(REPO / "tools/cfgs/dataset_configs/synthetic_dataset.yaml"),
-                           EDict())
-    d.POINT_CLOUD_RANGE = list(stage_cfg.DATA_CONFIG.POINT_CLOUD_RANGE)
-    d.DATA_PROCESSOR = stage_cfg.DATA_CONFIG.DATA_PROCESSOR
-    d.NUM_SCENES = TODA_SCENES
-    d.NUM_OBJECTS = [20, 40]
-    d.NUM_BACKGROUND_POINTS = 120000
-    d.MAX_GT_BOXES = 256
-    d.SEED = seed
-    d.TEST_SEED_OFFSET = 0
-    return d
+NUS_VERSION = "v1.0-trainval"
+NUS_CLASSES = ("car", "truck", "pedestrian", "barrier")
+# HDL-32E (nuScenes LIDAR_TOP): 32 beams over [-30.67, +10.67] deg, 1084
+# azimuth steps, 70 m; the sensor 1.84 m above the ground, 0.94 m ahead of
+# the ego origin, its x axis turned -90 deg (the dataset's calibration)
+NUS_BEAMS_DEG = (-30.67, 10.67, 32)
+NUS_AZIMUTHS = 1084
+NUS_MAX_RANGE = 70.0
+NUS_SENSOR = ((0.943713, 0.0, 1.84023), -math.pi / 2)
+# Waymo TOP: a 64 x 2650 range image over [-17.6, +2.4] deg, 75 m, the
+# sensor 2.184 m above the ground, 1.43 m ahead of the vehicle origin
+WAYMO_ROWS, WAYMO_COLS = 64, 2650
+WAYMO_INCL_DEG = (-17.6, 2.4)
+WAYMO_MAX_RANGE = 75.0
+WAYMO_SENSOR = (1.43, 0.0, 2.184)
+# (length, width, height) of a fabricated object of each class
+OBJECT_SIZES = {"car": (4.6, 1.95, 1.7), "truck": (7.5, 2.6, 3.2),
+                "pedestrian": (0.75, 0.7, 1.75), "barrier": (0.5, 2.4, 1.0),
+                "Vehicle": (4.7, 2.1, 1.8), "Pedestrian": (0.9, 0.85, 1.8),
+                "Cyclist": (1.8, 0.8, 1.7)}
 
 
-def toda_cfgs():
-    """The TODA slice at full width: (stage 1, stage 2, pseudo labels).
+def ray_cast(origins, dirs, boxes, ground_z, max_range):
+    """Range of each ray (R, 3 origins and unit directions) to the first of
+    the ground plane z = ``ground_z`` and the (M, 7) boxes [x, y, z, l, w,
+    h, yaw] (same frame), and the hit box's index (-1: the ground). Rays
+    with nothing within ``max_range`` get range 0."""
+    import numpy as np
+
+    origins = np.broadcast_to(np.asarray(origins, np.float32), dirs.shape)
+    # an object's surface lies 5 cm inside its labelled box, so the range
+    # noise keeps its points in the box
+    boxes = np.asarray(boxes, np.float32).copy()
+    boxes[:, 3:6] -= 0.1
+    dist = np.full(len(dirs), np.inf, np.float32)
+    down = dirs[:, 2] < -1e-6
+    dist[down] = (ground_z - origins[down, 2]) / dirs[down, 2]
+    obj = np.full(len(dirs), -1, np.int64)
+    safe = np.where(np.abs(dirs) < 1e-9, 1e-9, dirs)
+    for m, box in enumerate(boxes):
+        if np.hypot(*(box[:2] - origins[0, :2])) > max_range + box[3]:
+            continue
+        c, s = math.cos(box[6]), math.sin(box[6])
+        o = origins - box[:3]
+        o_local = (o[:, 0] * c + o[:, 1] * s, -o[:, 0] * s + o[:, 1] * c, o[:, 2])
+        d_local = (safe[:, 0] * c + safe[:, 1] * s, -safe[:, 0] * s + safe[:, 1] * c,
+                   safe[:, 2])
+        near = np.full(len(dirs), -np.inf, np.float32)
+        far = np.full(len(dirs), np.inf, np.float32)
+        for ax in range(3):
+            d_ax = np.where(np.abs(d_local[ax]) < 1e-9, 1e-9, d_local[ax])
+            t1 = (-box[3 + ax] / 2 - o_local[ax]) / d_ax
+            t2 = (box[3 + ax] / 2 - o_local[ax]) / d_ax
+            near = np.maximum(near, np.minimum(t1, t2))
+            far = np.minimum(far, np.maximum(t1, t2))
+        hit = (far >= near) & (near > 0) & (near < dist)
+        dist[hit] = near[hit]
+        obj[hit] = m
+    live = dist <= max_range
+    return np.where(live, dist, 0.0).astype(np.float32), np.where(live, obj, -1)
+
+
+def place_objects(rng, counts, path_len, reach, heading):
+    """Objects beside a straight road along ``heading`` from the origin:
+    (names, boxes (M, 7) in the road's frame, ground at z = 0), no two
+    overlapping in BEV, none within 3.5 m of the road's centre line."""
+    import numpy as np
+
+    names, boxes = [], []
+    for name, n in counts:
+        length, width, height = OBJECT_SIZES[name]
+        for _ in range(n):
+            for _try in range(50):
+                s = rng.uniform(-reach / 2, path_len + reach / 2)
+                lat = rng.choice([-1, 1]) * rng.uniform(3.5 + width, reach)
+                yaw = heading + (rng.normal(0, 0.15) if name not in ("pedestrian", "Pedestrian")
+                                 else rng.uniform(-math.pi, math.pi))
+                yaw += math.pi if rng.rand() < 0.5 else 0.0
+                dims = np.asarray([length, width, height]) * rng.uniform(0.9, 1.1, 3)
+                x = s * math.cos(heading) - lat * math.sin(heading)
+                y = s * math.sin(heading) + lat * math.cos(heading)
+                r = 0.5 * math.hypot(dims[0], dims[1])
+                if all(math.hypot(x - b[0], y - b[1]) > r + 0.5 * math.hypot(b[3], b[4]) + 0.3
+                       for b in boxes):
+                    boxes.append([x, y, dims[2] / 2, *dims, yaw])
+                    names.append(name)
+                    break
+    return names, np.asarray(boxes, np.float64).reshape(-1, 7)
+
+
+def _token(*parts):
+    import hashlib
+
+    return hashlib.md5("/".join(str(p) for p in parts).encode()).hexdigest()
+
+
+def _yaw_quat(yaw):
+    return [math.cos(yaw / 2), 0.0, 0.0, math.sin(yaw / 2)]
+
+
+def _pose(translation, yaw):
+    import numpy as np
+
+    m = np.eye(4)
+    m[:2, :2] = [[math.cos(yaw), -math.sin(yaw)], [math.sin(yaw), math.cos(yaw)]]
+    m[:3, 3] = translation
+    return m
+
+
+def fabricate_nuscenes(root, seed=SEED, scenes=6, samples_per_scene=4, sweeps=10,
+                       azimuths=NUS_AZIMUTHS):
+    """A nuScenes ``NUS_VERSION`` tree under ``root``: the raw JSON tables
+    (scene, sample, sample_data, ego_pose, calibrated_sensor, sensor,
+    sample_annotation, instance, category, attribute) and the LIDAR_TOP
+    scans as (N, 5) float32 x, y, z, intensity, ring ``.bin`` files, key
+    frames at 2 Hz under samples/, the ``sweeps`` - 1 scans 0.05 s apart
+    before each under sweeps/. Each scan is ray-cast with the HDL-32E
+    geometry (``NUS_BEAMS_DEG``, ``NUS_AZIMUTHS``, ``NUS_MAX_RANGE``) from
+    the ego's pose at its time, the ego driving at 4-8 m/s, against the
+    ground and the scene's boxes: cars (2-20 a scene, some moving; one in
+    the odd-numbered scenes), trucks, pedestrians and barriers.
+    ``azimuths`` < 1084 thins the scans (the tests' tiny files). Returns
+    {'scans', 'points', 'samples'}."""
+    import json
+
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    base = Path(root)
+    (base / "samples" / "LIDAR_TOP").mkdir(parents=True, exist_ok=True)
+    (base / "sweeps" / "LIDAR_TOP").mkdir(parents=True, exist_ok=True)
+    t = {k: [] for k in ("scene", "sample", "sample_data", "ego_pose", "calibrated_sensor",
+                         "sensor", "sample_annotation", "instance", "category", "attribute")}
+    cats = {"car": "vehicle.car", "truck": "vehicle.truck",
+            "pedestrian": "human.pedestrian.adult", "barrier": "movable_object.barrier"}
+    for name, general in cats.items():
+        t["category"].append({"token": _token("cat", general), "name": general,
+                              "description": ""})
+    for name in ("vehicle.moving", "vehicle.parked", "vehicle.stopped", "pedestrian.moving",
+                 "pedestrian.standing", "cycle.with_rider", "cycle.without_rider"):
+        t["attribute"].append({"token": _token("attr", name), "name": name, "description": ""})
+    sensor_tok, cs_tok = _token("sensor", "LIDAR_TOP"), _token("cs", "LIDAR_TOP")
+    t["sensor"].append({"token": sensor_tok, "channel": "LIDAR_TOP", "modality": "lidar"})
+    (sx, sy, sz), s_yaw = NUS_SENSOR
+    t["calibrated_sensor"].append({"token": cs_tok, "sensor_token": sensor_tok,
+                                   "translation": [sx, sy, sz], "rotation": _yaw_quat(s_yaw),
+                                   "camera_intrinsic": []})
+    ego_from_sensor = _pose((sx, sy, sz), s_yaw)
+    elev = np.radians(np.linspace(*NUS_BEAMS_DEG))
+    stats = {"scans": 0, "points": 0, "samples": 0}
+    for si in range(scenes):
+        scene_tok = _token(seed, "scene", si)
+        heading = rng.uniform(-math.pi, math.pi)
+        speed = rng.uniform(4.0, 8.0)
+        origin = np.asarray([rng.uniform(300, 2000), rng.uniform(300, 2000), 0.0])
+        n_sd = samples_per_scene * sweeps
+        path = speed * 0.05 * n_sd
+        # every other scene is a quiet street with one car: a share this
+        # script chooses, not a nuScenes statistic, so that the stage
+        # configs' gt_sampling (car:2, LIMIT_WHOLE_SCENE) has frames to fill
+        cars = 1 if si % 2 else rng.randint(2, 21)
+        names, boxes = place_objects(
+            rng, (("car", cars), ("truck", rng.randint(1, 4)),
+                  ("pedestrian", rng.randint(2, 9)), ("barrier", rng.randint(0, 7))),
+            path, 45.0, heading)
+        boxes[:, :2] += origin[:2]
+        vel = np.zeros((len(boxes), 2))
+        moving = np.asarray([n == "car" and rng.rand() < 0.4 for n in names])
+        vel[moving] = np.stack([np.cos(boxes[moving, 6]), np.sin(boxes[moving, 6])], 1) \
+            * rng.uniform(2, 8, (int(moving.sum()), 1))
+        walking = np.asarray([n == "pedestrian" and rng.rand() < 0.5 for n in names])
+        vel[walking] = np.stack([np.cos(boxes[walking, 6]), np.sin(boxes[walking, 6])], 1) * 1.3
+        inst = [_token(seed, "inst", si, m) for m in range(len(boxes))]
+        t0 = 1_533_000_000_000_000 + si * 60_000_000
+        sample_toks = [_token(seed, "sample", si, k) for k in range(samples_per_scene)]
+        sd_toks = [_token(seed, "sd", si, j) for j in range(n_sd)]
+        anns = {m: [] for m in range(len(boxes))}
+        for j in range(n_sd):
+            ts = t0 + 50_000 * j
+            dt = (ts - t0) * 1e-6
+            key = j % sweeps == sweeps - 1
+            k = j // sweeps
+            ego = _pose(origin + speed * dt * np.asarray([math.cos(heading),
+                                                          math.sin(heading), 0.0]), heading)
+            sensor_from_global = np.linalg.inv(ego @ ego_from_sensor)
+            cur = boxes.copy()
+            cur[:, :2] += vel * dt
+            local = cur.copy()
+            local[:, :3] = (sensor_from_global[:3, :3] @ cur[:, :3].T).T \
+                + sensor_from_global[:3, 3]
+            local[:, 6] = cur[:, 6] - heading - s_yaw
+            az = np.linspace(0, 2 * math.pi, azimuths, endpoint=False) + rng.uniform(0, 0.005)
+            e, a = np.meshgrid(elev, az, indexing="ij")
+            dirs = np.stack([np.cos(e) * np.cos(a), np.cos(e) * np.sin(a), np.sin(e)],
+                            -1).reshape(-1, 3).astype(np.float32)
+            rng_m, obj = ray_cast(np.zeros(3), dirs, local, -sz, NUS_MAX_RANGE)
+            live = rng_m > 0
+            dist = rng_m[live] + rng.normal(0, 0.015, int(live.sum())).astype(np.float32)
+            hit_obj = obj[live]
+            pts = np.empty((int(live.sum()), 5), np.float32)
+            pts[:, :3] = dirs[live] * dist[:, None]
+            pts[:, 3] = np.where(hit_obj >= 0, rng.uniform(5, 100, len(dist)),
+                                 rng.uniform(1, 20, len(dist)))
+            pts[:, 4] = np.repeat(np.arange(len(elev)), azimuths)[live]
+            folder = "samples" if key else "sweeps"
+            fname = f"{folder}/LIDAR_TOP/n{seed:03d}-{si:02d}__LIDAR_TOP__{ts}.pcd.bin"
+            pts.tofile(str(base / fname))
+            stats["scans"] += 1
+            stats["points"] += len(pts)
+            ep_tok = _token(seed, "ego", si, j)
+            t["ego_pose"].append({"token": ep_tok, "timestamp": ts,
+                                  "translation": ego[:3, 3].tolist(),
+                                  "rotation": _yaw_quat(heading)})
+            t["sample_data"].append({
+                "token": sd_toks[j], "sample_token": sample_toks[min(k, samples_per_scene - 1)],
+                "ego_pose_token": ep_tok, "calibrated_sensor_token": cs_tok, "timestamp": ts,
+                "fileformat": "pcd", "is_key_frame": key, "height": 0, "width": 0,
+                "filename": fname, "prev": sd_toks[j - 1] if j else "",
+                "next": sd_toks[j + 1] if j + 1 < n_sd else ""})
+            if not key:
+                continue
+            t["sample"].append({
+                "token": sample_toks[k], "timestamp": ts, "scene_token": scene_tok,
+                "prev": sample_toks[k - 1] if k else "",
+                "next": sample_toks[k + 1] if k + 1 < samples_per_scene else ""})
+            stats["samples"] += 1
+            n_pts = np.bincount(hit_obj[hit_obj >= 0], minlength=len(boxes))
+            for m, name in enumerate(names):
+                speed_m = float(np.hypot(*vel[m]))
+                if name in ("car", "truck"):
+                    attr = "vehicle.moving" if speed_m > 0.2 else "vehicle.parked"
+                elif name == "pedestrian":
+                    attr = "pedestrian.moving" if speed_m > 0.2 else "pedestrian.standing"
+                else:
+                    attr = None
+                anns[m].append({
+                    "token": _token(seed, "ann", si, m, k), "sample_token": sample_toks[k],
+                    "instance_token": inst[m], "visibility_token": "4",
+                    "attribute_tokens": [_token("attr", attr)] if attr else [],
+                    "translation": cur[m, :3].tolist(),
+                    "size": [cur[m, 4], cur[m, 3], cur[m, 5]],
+                    "rotation": _yaw_quat(cur[m, 6]), "num_lidar_pts": int(n_pts[m]),
+                    "num_radar_pts": 0})
+        for m, name in enumerate(names):
+            for k, ann in enumerate(anns[m]):
+                ann["prev"] = anns[m][k - 1]["token"] if k else ""
+                ann["next"] = anns[m][k + 1]["token"] if k + 1 < len(anns[m]) else ""
+            t["sample_annotation"].extend(anns[m])
+            t["instance"].append({"token": inst[m], "category_token": _token("cat", cats[name]),
+                                  "nbr_annotations": len(anns[m]),
+                                  "first_annotation_token": anns[m][0]["token"],
+                                  "last_annotation_token": anns[m][-1]["token"]})
+        t["scene"].append({"token": scene_tok, "name": f"scene-{seed:02d}{si:02d}",
+                           "description": "fabricated", "log_token": _token(seed, "log", si),
+                           "nbr_samples": samples_per_scene,
+                           "first_sample_token": sample_toks[0],
+                           "last_sample_token": sample_toks[-1]})
+    tables = base / NUS_VERSION
+    tables.mkdir(parents=True, exist_ok=True)
+    for name, rows in t.items():
+        (tables / f"{name}.json").write_text(json.dumps(rows))
+    return stats
+
+
+# the percentage splits the stage configs name, as seeded subsets of the
+# train infos: file suffix, and whether it is a labelled subset (else the
+# rest of train)
+NUS_SPLITS = (("train_01", True), ("train_5", True), ("train_unlabeled_90", False))
+
+
+def fabricate_nuscenes_splits(root, seed=SEED, sweeps=10, frames=8):
+    """The labelled-percentage info files the stage configs read
+    (nuscenes_infos_<sweeps>sweeps_train_01.pkl, _train_5.pkl,
+    _train_unlabeled_90.pkl), which the JAX package's tools do not write:
+    seeded subsets of ``create_infos``' train infos, ``frames`` each (8:
+    two batches of 4, not the named percentage of a split this small), the
+    unlabelled one the train frames outside _train_5. Returns {suffix:
+    frames}."""
+    import pickle
+
+    import numpy as np
+
+    root = Path(root)
+    with open(root / f"nuscenes_infos_{sweeps}sweeps_train.pkl", "rb") as f:
+        train = pickle.load(f)
+    rng = np.random.RandomState(seed)
+    out, labelled = {}, set()
+    for suffix, subset in NUS_SPLITS:
+        if subset:
+            sel = sorted(rng.permutation(len(train))[:frames].tolist())
+            labelled = set(sel)
+        else:
+            sel = [i for i in range(len(train)) if i not in labelled]
+        with open(root / f"nuscenes_infos_{sweeps}sweeps_{suffix}.pkl", "wb") as f:
+            pickle.dump([train[i] for i in sel], f)
+        out[suffix] = len(sel)
+    return out
+
+
+def fabricate_waymo(raw_dir, seed=SEED, sequences=2, frames=20, rows=WAYMO_ROWS,
+                    cols=WAYMO_COLS):
+    """Waymo ``.tfrecord`` sequences under ``raw_dir``, written with
+    ``toda_tpu_torch.datasets.waymo.tfrecord_io``'s encoders: per frame at
+    10 Hz, the vehicle pose, the TOP laser's calibration (64 beam
+    inclinations over ``WAYMO_INCL_DEG``, the extrinsic) and its first
+    return as a 64 x 2650 range image (range, intensity, elongation, NLZ)
+    with a per-pixel pose (the vehicle's at each column's time, 0.1 s a
+    turn, as the rolling shutter records it), ray-cast to 75 m against the
+    ground and the boxes; laser labels of Vehicle, Pedestrian and Cyclist
+    boxes in the vehicle frame with their lidar point counts. ``rows`` x
+    ``cols`` below 64 x 2650 thins the range image (the tests' tiny files).
+    Returns {'frames', 'points'}."""
+    import numpy as np
+
+    from toda_tpu_torch.datasets.waymo import tfrecord_io as tio
+
+    rng = np.random.RandomState(seed + 1)
+    raw_dir = Path(raw_dir)
+    raw_dir.mkdir(parents=True, exist_ok=True)
+    beams = np.radians(np.linspace(*WAYMO_INCL_DEG, rows)) \
+        + rng.normal(0, 1e-4, rows)
+    incl = beams[::-1]  # row 0 is the highest beam
+    col = np.arange(cols)
+    az = ((cols - col - 0.5) / cols * 2 - 1) * math.pi
+    e, a = np.meshgrid(incl, az, indexing="ij")
+    dirs = np.stack([np.cos(e) * np.cos(a), np.cos(e) * np.sin(a), np.sin(e)],
+                    -1).reshape(-1, 3).astype(np.float32)
+    col_dt = (col / cols - 0.5) * 0.1
+    extrinsic = _pose(WAYMO_SENSOR, 0.0)
+    calib = tio.enc_laser_calibration(tio.LASER_TOP, extrinsic, float(beams[0]),
+                                      float(beams[-1]), beams)
+    classes = {"Vehicle": 1, "Pedestrian": 2, "Cyclist": 4}
+    stats = {"frames": 0, "points": 0}
+    for q in range(sequences):
+        heading = rng.uniform(-math.pi, math.pi)
+        speed = rng.uniform(5.0, 10.0)
+        origin = np.asarray([rng.uniform(-3000, 3000), rng.uniform(-3000, 3000), 0.0])
+        names, boxes = place_objects(
+            rng, (("Vehicle", rng.randint(10, 31)), ("Pedestrian", rng.randint(3, 11)),
+                  ("Cyclist", rng.randint(1, 4))), speed * 0.1 * frames, 60.0, heading)
+        boxes[:, :2] += origin[:2]
+        records = []
+        context = f"{seed:04d}{q:04d}_fabricated"
+        for f in range(frames):
+            ts = 1_550_000_000_000_000 + q * 100_000_000 + f * 100_000
+            pos = origin + speed * 0.1 * f * np.asarray([math.cos(heading), math.sin(heading), 0])
+            frame_pose = _pose(pos, heading)
+            inv = np.linalg.inv(frame_pose)
+            local = boxes.copy()
+            local[:, :3] = (inv[:3, :3] @ boxes[:, :3].T).T + inv[:3, 3]
+            local[:, 6] = boxes[:, 6] - heading
+            # each column's ray leaves the sensor where the vehicle is at its time
+            shift = np.zeros((cols, 3), np.float32)
+            shift[:, 0] = speed * col_dt
+            origins = (np.asarray(WAYMO_SENSOR, np.float32)[None, None] + shift[None]).repeat(
+                rows, 0).reshape(-1, 3)
+            dist, obj = ray_cast(origins, dirs, local, 0.0, WAYMO_MAX_RANGE)
+            live = dist > 0
+            dist = np.where(live, dist + rng.normal(0, 0.015, len(dist)), 0).astype(np.float32)
+            ri = np.zeros((rows, cols, 4), np.float32)
+            ri[..., 0] = dist.reshape(rows, cols)
+            ri[..., 1] = np.where(obj >= 0, rng.uniform(0.05, 1.0, len(dist)),
+                                  rng.uniform(0.01, 0.3, len(dist))).reshape(ri.shape[:2])
+            ri[..., 2] = rng.uniform(0.0, 0.3, ri.shape[:2])
+            ri[..., 3] = -1.0
+            ri[..., 1:3] *= ri[..., :1] > 0
+            pix = np.zeros((rows, cols, 6), np.float32)
+            pix[..., 2] = heading
+            pix[..., 3:] = (pos + np.outer(speed * col_dt, [math.cos(heading),
+                                                            math.sin(heading), 0.0]))[None]
+            n_pts = np.bincount(obj[obj >= 0], minlength=len(boxes))
+            labels = [tio.enc_label(classes[n], local[m], num_pts=int(n_pts[m]),
+                                    obj_id=f"{q}-{m}", difficulty=1 if n_pts[m] > 5 else 2)
+                      for m, n in enumerate(names)]
+            records.append(tio.enc_frame(
+                context, ts, frame_pose, [calib],
+                [(tio.LASER_TOP, tio.enc_range_image(ri, pix), None)], labels))
+            stats["frames"] += 1
+            stats["points"] += int(live.sum())
+        tio.write_tfrecords(raw_dir / f"segment-{context}_with_camera_labels.tfrecord",
+                            records)
+    return stats
+
+
+def toda_cfgs(data_root=None):
+    """The TODA slice at full width: (stage 1, stage 2, pseudo labels), the
+    configs as the repo holds them with only each domain's DATA_PATH moved
+    to the fabricated files under ``data_root`` (``phase_data``; None keeps
+    the configs' own paths, for callers that read only the models).
 
     Stage 1: tools/cfgs/stage1_targetmix/centerpoint_20_waymo_01_nus_targetmix.yaml
     (CenterPoint with PillarResBackBone8x [16, 32, 64, 64], MAX_PILLARS 32768,
     BF16; BEV [5, 5] x [128, 256] / [256, 256]; CenterHead, one class 'car';
     range [-51.2, 51.2]^2 x [-5, 3], voxel (0.1, 0.1, 0.2) -> 1024 x 1024 x
-    40; 131072 points a scan; CutMixDataset with CUTMIX_PROB 0.5; adam_onecycle
-    at LR 0.001). Stage 2: MODEL and DATA_CONFIG of
-    tools/cfgs/stage2_advmix/centerpoint_5_lab_nus_advmix.yaml (MixUpDataset:
-    MIXUP_PROB 0.7, GT_PROB 0.3, gt+ps_gt+ps, ADV_ALPHA 0.5, pseudo score
-    0.2, world flip / rotation / scaling; CL_CFG weight 0.1, score 0.3).
-    Pseudo labels: PSEUDO_LABEL of
+    40; 131072 points a scan; CutMixDataset with CUTMIX_PROB 0.5 over Waymo
+    (SOURCE_CFG: waymo_dataset.yaml, SAMPLED_INTERVAL 5, gt_sampling) and
+    nuScenes (TARGET_CFG: nuscenes_dataset.yaml, 10 sweeps, the _train_01
+    infos, CBGS, gt_sampling); adam_onecycle at LR 0.001; DATA_CONFIG_TEST
+    nuScenes val). Stage 2:
+    tools/cfgs/stage2_advmix/centerpoint_5_lab_nus_advmix.yaml (MixUpDataset
+    over BASE_CFG nuScenes _train_5: MIXUP_PROB 0.7, GT_PROB 0.3,
+    gt+ps_gt+ps, ADV_ALPHA 0.5, pseudo score 0.2, world flip / rotation /
+    scaling; CL_CFG weight 0.1, score 0.3). Pseudo labels:
     tools/cfgs/pseudo_labels/centerpoint_generate_90_pseudo_nus_frames.yaml
-    (score 0.2, the perturbation, eps 1.0) with the stage-1 model. Cut:
-    SOURCE_CFG, TARGET_CFG and BASE_CFG are synthetic scenes
-    (``toda_domain_cfg``), not Waymo and nuScenes info files, which the repo
-    does not hold."""
+    (DATA_CONFIG nuScenes with the _train_unlabeled_90 infos; score 0.2,
+    the perturbation, eps 1.0)."""
     from toda_tpu_torch.config import EDict, cfg_from_yaml_file
 
     s1 = cfg_from_yaml_file(str(REPO / "tools/cfgs/stage1_targetmix/"
                                 "centerpoint_20_waymo_01_nus_targetmix.yaml"), EDict())
-    s1.DATA_CONFIG.SOURCE_CFG = toda_domain_cfg(s1, 0)
-    s1.DATA_CONFIG.TARGET_CFG = toda_domain_cfg(s1, 100)
     s2 = cfg_from_yaml_file(str(REPO / "tools/cfgs/stage2_advmix/"
                                 "centerpoint_5_lab_nus_advmix.yaml"), EDict())
-    s2.DATA_CONFIG.BASE_CFG = toda_domain_cfg(s2, 100)
     pl = cfg_from_yaml_file(str(REPO / "tools/cfgs/pseudo_labels/"
                                 "centerpoint_generate_90_pseudo_nus_frames.yaml"), EDict())
-    return s1, s2, pl.PSEUDO_LABEL
+    if data_root is not None:
+        nus, waymo = str(Path(data_root) / "nuscenes"), str(Path(data_root) / "waymo")
+        s1.DATA_CONFIG.SOURCE_CFG.DATA_PATH = waymo
+        for d in (s1.DATA_CONFIG.TARGET_CFG, s1.DATA_CONFIG_TEST, s2.DATA_CONFIG.BASE_CFG,
+                  s2.DATA_CONFIG_TEST, pl.DATA_CONFIG):
+            d.DATA_PATH = nus
+    return s1, s2, pl
+
+
+def occupied_pillars(sample, dataset):
+    """The BEV cells of the voxel grid a prepared scan's points fill: the
+    pillars the pillar backbone's voxelizer takes (up to MAX_PILLARS, in
+    key order)."""
+    import numpy as np
+
+    pts = sample["points"][sample["points_mask"].astype(bool)]
+    ijk = np.floor((pts[:, :3] - dataset.point_cloud_range[:3])
+                   / dataset.voxel_size).astype(np.int64)
+    grid = np.asarray(dataset.grid_size)
+    ok = ((ijk >= 0) & (ijk < grid)).all(axis=1)
+    return len(np.unique(ijk[ok, 1] * grid[0] + ijk[ok, 0]))
+
+
+def phase_data(data_root):
+    """The real-format data path on the host: nuScenes and Waymo fabricated
+    under ``data_root`` (``fabricate_nuscenes``, ``fabricate_waymo``), their
+    infos and gt databases from the port's ``create_infos`` (``nuscenes``,
+    ``waymo``, ``--with_gt_db``), the labelled-percentage splits
+    (``fabricate_nuscenes_splits``); then every split the stage configs read
+    is built and must hold two batches; the stage-1 CutMix dataset prepares
+    scans on one thread (the host loader's rate, no device), and each scan's
+    points before and after ``sample_points`` and its occupied pillars
+    against MAX_PILLARS are logged, as are the nuScenes val scans the
+    target-domain evals read. Returns {metric: value} and the split sizes."""
+    import numpy as np
+
+    from toda_tpu_torch.datasets import build_dataset
+    from toda_tpu_torch.tools import create_infos
+    from toda_tpu_torch.tools.generate_pseudo_labels import build_unlabelled_loader
+    from toda_tpu_torch.utils import box_utils
+
+    root = Path(data_root)
+    nus, waymo = root / "nuscenes", root / "waymo"
+    secs = {}
+    t = time.time()
+    fn = fabricate_nuscenes(nus)
+    secs["fabricate nuScenes"] = time.time() - t
+    t = time.time()
+    fw = fabricate_waymo(waymo / "raw")
+    secs["fabricate Waymo"] = time.time() - t
+    t = time.time()
+    create_infos.main(["nuscenes", "--data_path", str(nus), "--version", NUS_VERSION,
+                       "--max_sweeps", "10", "--with_gt_db", "--classes", ",".join(NUS_CLASSES)])
+    secs["create_infos nuscenes --with_gt_db"] = time.time() - t
+    t = time.time()
+    create_infos.main(["waymo", "--data_path", str(waymo / "raw"), "--save_path", str(waymo),
+                       "--with_gt_db", "--classes", "Vehicle,Pedestrian,Cyclist"])
+    secs["create_infos waymo --with_gt_db"] = time.time() - t
+    splits = fabricate_nuscenes_splits(nus)
+    disk = {d.name: sum(f.stat().st_size for f in d.rglob("*") if f.is_file()) / 2**20
+            for d in (nus, waymo)}
+    log(f"phase data: nuScenes {fn['samples']} key frames, {fn['scans']} LIDAR_TOP scans, "
+        f"{fn['points'] / fn['scans']:.0f} points a scan; Waymo {fw['frames']} frames, "
+        f"{fw['points'] / fw['frames']:.0f} points a range image; splits written by the "
+        f"fabricator {splits}; on disk {({k: round(v) for k, v in disk.items()})} MiB; host "
+        f"seconds {({k: round(v, 1) for k, v in secs.items()})}")
+
+    s1, s2, pl = toda_cfgs(root)
+    np.random.seed(SEED)
+    ds1 = build_dataset(s1.DATA_CONFIG, s1.CLASS_NAMES, training=True)
+    base = build_dataset(s2.DATA_CONFIG.BASE_CFG, s2.CLASS_NAMES, training=True)
+    unl, _ = build_unlabelled_loader(pl, BATCH)
+    val = build_dataset(s1.DATA_CONFIG_TEST, s1.CLASS_NAMES)
+    sizes = {"source": len(ds1.source), "target": len(ds1.target), "stage2_labelled": len(base),
+             "unlabelled": len(unl), "val": len(val)}
+    assert all(n >= 2 * BATCH for n in sizes.values()), sizes
+    assert not {i["token"] for i in unl.infos} & {i["token"] for i in base.infos}
+
+    # the target domain's gt_sampling: a call that pastes keeps its scene
+    # points, its output points and the boxes it pasted (copies: the next
+    # augmentations flip in place), read after the timed loop
+    sampler = ds1.target.data_augmentor.data_augmentor_queue[0]
+    pasted, calls = [], []
+
+    def counted(data_dict):
+        n, points = len(data_dict["gt_boxes"]), data_dict["points"]
+        out = sampler(data_dict)
+        calls.append(len(out["gt_boxes"]) - n)
+        if calls[-1]:
+            pasted.append((points, out["points"].copy(), out["gt_boxes"][n:, :7].copy()))
+        return out
+
+    ds1.target.data_augmentor.data_augmentor_queue[0] = counted
+    cap = int(s1.MODEL.BACKBONE_3D.MAX_PILLARS)
+    metrics = {}
+    for what, ds, n in (("stage-1 CutMix (train)", ds1, 4 * BATCH), ("nuScenes val (test)",
+                                                                        val, len(val))):
+        raw, kept, pillars = [], [], []
+        t = time.time()
+        samples = [ds[i] for i in range(n)]
+        rate = n / (time.time() - t)
+        for i, smp in enumerate(samples):
+            kept.append(int(smp["points_mask"].sum()))
+            pillars.append(occupied_pillars(smp, ds))
+        if ds is val:
+            raw = [len(val.get_raw_scene(i)[0]) for i in range(n)]
+        else:
+            raw = [len(ds1.source.get_raw_scene(i)[0]) for i in range(len(ds1.source))] \
+                + [len(ds1.target.get_raw_scene(i)[0]) for i in range(len(ds1.target))]
+        key = "cutmix" if ds is ds1 else "val"
+        metrics[f"loader_{key}_scans_per_s"] = rate
+        metrics[f"pillars_{key}"] = (min(pillars), float(np.mean(pillars)), max(pillars))
+        log(f"  {what}: {rate:.2f} scans/s on one host thread (prepare_data"
+            f"{' + CutMix' if ds is ds1 else ''}, {n} scans); points a scan "
+            f"{min(raw)}-{max(raw)} loaded, {min(kept)}-{max(kept)} after sample_points "
+            f"(cap {ds.max_points}); occupied pillars {min(pillars)}-{max(pillars)} (mean "
+            f"{np.mean(pillars):.0f}) against MAX_PILLARS {cap}: the cap drops "
+            f"{sum(max(0, v - cap) for v in pillars) / n:.0f} a scan, on "
+            f"{sum(v > cap for v in pillars)} of {n} scans")
+    # the pasted objects' points come first in a sampler's output, before
+    # the scene's points its carve-out kept
+    objects = obj_points = inside = 0
+    for points, out, boxes in pasted:
+        obj = out[:len(out) - len(box_utils.remove_points_in_boxes3d(points, boxes))]
+        objects += len(boxes)
+        obj_points += len(obj)
+        inside += int(box_utils.points_in_boxes_numpy(obj, boxes).any(0).sum())
+    log(f"  splits {sizes}; the target's gt_sampling (car:2, LIMIT_WHOLE_SCENE) pasted "
+        f"{objects} cars over {len(calls)} calls, {obj_points} points, {inside} of them "
+        f"inside their boxes")
+    assert objects > 0, "the target's gt_sampling pasted no object"
+    assert inside >= 0.99 * obj_points, (inside, obj_points)
+    metrics["gt_sampling_pasted"] = (objects, obj_points, inside)
+    return metrics, sizes
 
 
 def second_tiny(cfg, fused=False):
@@ -1674,13 +2185,17 @@ def phase_toda_tiny():
         f"within 1e-3 x LR where live (max {worst:.3g} x LR); BN statistics within 1e-4")
 
 
-def phase_toda():
-    """The TODA recipe at full width (``toda_cfgs``) through the entry points
+def phase_toda(data_root):
+    """The TODA recipe at full width (``toda_cfgs`` over the fabricated
+    Waymo and nuScenes files under ``data_root``) through the entry points
     its three CLIs call: stage 1 (``train_model`` over one epoch of the
     CutMix loader, its checkpoint, ``load_params_only``), pseudo labels
-    (``generate_pseudo_labels`` with the perturbation over the target
-    domain's frames, with the stage-1 weights), stage 2 (``MixUpDataset`` over
-    those pseudo infos in ``CLPairDataset``, ``make_train_step_cl`` steps).
+    (``generate_pseudo_labels`` with the perturbation over the pseudo
+    config's unlabelled nuScenes split, as the CLI builds its loader, with
+    the stage-1 weights), stage 2 (``MixUpDataset`` over those pseudo infos
+    in ``CLPairDataset``, ``make_train_step_cl`` steps; a pseudo frame is
+    read through its 'frame_info', checked against the unlabelled split's
+    own reader).
     Launch counts are asserted per step; the perturbation's raw first-conv
     dx and K4-VJP K6 calls are held against their plain versions
     (``check_train_kernels``). Returns (rows, launches, {metric: value})."""
@@ -1706,8 +2221,10 @@ def phase_toda():
         make_train_step,
         train_model,
     )
+    from toda_tpu_torch.tools.generate_pseudo_labels import build_unlabelled_loader
 
-    s1, s2, plcfg = toda_cfgs()
+    s1, s2, pl = toda_cfgs(data_root)
+    plcfg = pl.PSEUDO_LABEL
     metrics, total = {}, {}
     ckpt_dir = REPO / "build" / "toda_ckpt"
     shutil.rmtree(ckpt_dir, ignore_errors=True)
@@ -1727,7 +2244,7 @@ def phase_toda():
     wall = time.time() - t0
     launches = toda_launches()
     n1 = len(seen)
-    assert n1 == len(loader1) == 2 * TODA_SCENES // BATCH, (n1, len(loader1))
+    assert n1 == len(loader1) == len(ds1) // BATCH >= 2, (n1, len(loader1))
     assert launches == times(TODA_PER_STEP["train"], n1), launches
     assert all(math.isfinite(v) for _, v in seen) and ds1.train_percent == 1.0
     total = times(TODA_PER_STEP["train"], n1)
@@ -1749,26 +2266,41 @@ def phase_toda():
     assert all(torch.equal(a, b) for a, b in zip(pstate.mu + pstate.nu, state1.mu + state1.nu))
     del probe, pstate
     step1 = make_train_step(b1)
-    metrics["stage1_train_scans_per_s"] = steady_rate(
-        train_run(b1, state1, step1, [b for b, _ in seen]))
+    run1 = train_run(b1, state1, step1, [b for b, _ in seen])
+    metrics["stage1_train_scans_per_s"] = steady_rate(run1)
     log(f"phase TODA checkpoint: load_params_only and load_checkpoint of {ckpt.name} give "
         f"the same weights, BN statistics and Adam state; stage-1 train throughput "
         f"{metrics['stage1_train_scans_per_s']:.2f} scans/s steady state (batch {BATCH}, "
         f"best of 3 x 10 steps, loss read back every step)")
-    del b1, state1, step1, seen
+    phase_profile(run1, "TODA stage-1 train step")
+    # the fused convs on the real-format traffic: one stage-1 forward's K1,
+    # K4, K5 and one train step's dx, dW, K6 calls, each held against its
+    # plain version and timed (logged beside the synthetic scenes' rows,
+    # not summed into the kernels line)
+    log("phase TODA kernels on the stage-1 CutMix batches (Waymo and nuScenes scans):")
+    real = phase_kernels(b1, seen[0][0])
+    real.update(phase_train_kernels(state1, step1, seen[0][0]))
+    metrics["real_kernel_ms"] = {
+        k: (round(sum(r["ms"] for r in rs), 4), round(sum(r["plain_ms"] or 0 for r in rs), 4))
+        for k, rs in real.items()}
+    metrics["real_pair_share"] = {
+        k: float(np.mean([r["share"] for r in rs])) for k, rs in real.items()
+        if rs and "share" in rs[0]}
+    log(f"  summed over the recorded calls (ms, plain ms): {metrics['real_kernel_ms']}; mean "
+        f"present-pair share {metrics['real_pair_share']}")
+    del b1, state1, step1, run1, seen, real
     torch.cuda.empty_cache()
 
-    # pseudo labels with the perturbation over the target domain, stage-1 weights
-    tds, tloader, _ = build_dataloader(toda_domain_cfg(s1, 100), s1.CLASS_NAMES,
-                                       batch_size=BATCH)
-    pb = build_network(s1.MODEL, len(s1.CLASS_NAMES), tds, device="cuda", seed=SEED + 1)
+    # pseudo labels with the perturbation over the unlabelled split, stage-1 weights
+    tds, tloader = build_unlabelled_loader(pl, BATCH)
+    pb = build_network(pl.MODEL, len(pl.CLASS_NAMES), tds, device="cuda", seed=SEED + 1)
     checkpoint.load_params_only(ckpt, pb)
     n_pl = len(tloader)
     with Recorder(fused_conv, "fused_bnconv9_bwd_dx") as kdx, \
             Recorder(gather, "gather_rows") as k6:
         reset_launches()
         t0 = time.time()
-        infos = generate_pseudo_labels(pb, tloader, tds, s1.CLASS_NAMES,
+        infos = generate_pseudo_labels(pb, tloader, tds, pl.CLASS_NAMES,
                                        score_thresh=float(plcfg.SCORE_THRESH),
                                        with_perturb=bool(plcfg.WITH_PERTURB),
                                        eps=float(plcfg.EPS))
@@ -1790,24 +2322,38 @@ def phase_toda():
         i["point_perturb"].shape == (tds.max_points, 3)
         and set(np.unique(i["point_perturb"])) <= {-1.0, 0.0, 1.0} for i in infos)
     assert any(np.abs(i["point_perturb"]).sum() > 0 for i in infos)
-    log(f"phase TODA pseudo labels: generate_pseudo_labels over {len(infos)} target frames "
+    unlabelled = [i["token"] for i in tds.infos]
+    assert [i["index"] for i in infos] == [i["frame_info"]["token"] for i in infos] \
+        == [unlabelled[k % len(unlabelled)] for k in range(len(infos))]
+    log(f"phase TODA pseudo labels: generate_pseudo_labels over {len(infos)} unlabelled "
+        f"nuScenes frames ({len(tds)} in the split, the last batch padded) "
         f"(score {plcfg.SCORE_THRESH}, eps {plcfg.EPS}, the perturbation) in {wall:.1f}s; "
         f"launches {launches} ({n_pl} predict + {n_pl} perturb steps: per perturb step "
         f"{TODA_PER_STEP['perturb']}); {n_boxes} pseudo boxes kept, "
         f"{sum(len(i['p_voxel_coords']) for i in infos)} perturbed voxels stored")
-    # the same sweep at score 0: the box-bearing pseudo frames of the F1 pass
-    infos0 = generate_pseudo_labels(pb, tloader, tds, s1.CLASS_NAMES, score_thresh=0.0,
+    # the same sweep at score 0, post-processing's threshold at 0 too: the
+    # box-bearing pseudo frames of the F1 pass (the few-step stage-1 weights
+    # score hardly a box above POST_PROCESSING.SCORE_THRESH 0.1)
+    post = pb.post_cfg
+    pb.post_cfg = {**post, "SCORE_THRESH": 0.0}
+    infos0 = generate_pseudo_labels(pb, tloader, tds, pl.CLASS_NAMES, score_thresh=0.0,
                                     with_perturb=True, eps=float(plcfg.EPS))
+    pb.post_cfg = post
     n_boxes0 = sum(len(i["gt_boxes"]) for i in infos0)
     assert n_boxes0 > 0, "no pseudo box even at score 0"
-    log(f"  at score 0 the same sweep keeps {n_boxes0} boxes (the perturbation's targets "
-        f"are the NMS output at POST_PROCESSING.SCORE_THRESH in both)")
+    log(f"  at score 0 (and POST_PROCESSING.SCORE_THRESH 0) the same sweep keeps "
+        f"{n_boxes0} boxes")
     with torch.no_grad():
         rows = check_train_kernels(raw_dx, (), k4_vjp)
     del kdx, k6, raw_dx, k4_vjp
     log_rows(rows)
     first = next(iter(tloader))
-    dev = pb.to_device({k: first[k] for k in ("points", "points_mask", "gt_boxes")})
+    # targets of the head's 7 box columns (no velocity) and the class, as
+    # generate_pseudo_labels gives the perturbation (the loader's nuScenes
+    # boxes carry velocity)
+    gt = first["gt_boxes"]
+    dev = pb.to_device({"points": first["points"], "points_mask": first["points_mask"],
+                        "gt_boxes": np.concatenate([gt[..., :7], gt[..., -1:]], -1)})
     perturb = make_perturb_step(pb)
     metrics["perturb_scans_per_s"] = steady_rate(lambda: float(perturb(dev)[0, 0, 0]))
     log(f"phase TODA perturb throughput: {metrics['perturb_scans_per_s']:.2f} scans/s steady "
@@ -1820,6 +2366,13 @@ def phase_toda():
     np.random.seed(SEED)
     mds, _, _ = build_mixup_dataloader(s2.DATA_CONFIG, s2.CLASS_NAMES, batch_size=BATCH,
                                        pseudo_infos=infos, training=True)
+    # a pseudo frame through the labelled split's dataset: the unlabelled
+    # split's own points (the shift, the sweeps)
+    probe = infos[-1]
+    got = mds.base.get_raw_scene(probe["frame_info"])[0]
+    want = tds.get_raw_scene(unlabelled.index(probe["index"]))[0]
+    assert probe["index"] not in {i["token"] for i in mds.base.infos}
+    assert got.shape == want.shape and np.array_equal(got, want), (got.shape, want.shape)
     cl = CLPairDataset(mds)
     cbatches = [b for _, b in zip(range(TODA_CL_STEPS), DataLoader(cl, BATCH, training=True))]
     b2 = build_network(s2.MODEL, len(s2.CLASS_NAMES), cl, device="cuda", seed=SEED + 2)
@@ -1841,8 +2394,10 @@ def phase_toda():
     assert all(math.isfinite(v) for tb in tbs for v in tb.values()), tbs
     metrics["cl_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     log(f"phase TODA stage 2: {n2} make_train_step_cl steps (MixUpDataset over {len(infos)} "
-        f"pseudo frames + {TODA_SCENES} labelled, adv and org views of {BATCH} scans, numpy "
-        f"batches in) in {wall:.1f}s; launches {launches}; {tbs}; peak device memory "
+        f"pseudo frames, read through their frame_info ({len(got)} points in the probe, "
+        f"equal to the unlabelled split's), + {len(mds.labeled_indices)} labelled, adv and org "
+        f"views of {BATCH} scans, numpy batches in) in {wall:.1f}s; launches {launches}; "
+        f"{tbs}; peak device memory "
         f"{metrics['cl_peak_gib']:.2f} GiB")
     dev2 = [{view: b2.to_device(v) for view, v in select_cl_arrays(b).items()} for b in cbatches]
     turn = itertools.count()
@@ -1858,8 +2413,9 @@ def phase_toda():
     del step2, dev2, cbatches
 
     # stage 2 on box-bearing pseudo frames: MixUp over the score-0 pseudo
-    # labels, the consistency matched at score 0 (the 3-step stage-1 weights
-    # score no box above 0.2, so at the config's 0.3 nothing would match)
+    # labels, the consistency matched at score 0 (the few-step stage-1
+    # weights score no box above 0.2, so at the config's 0.3 nothing would
+    # match)
     np.random.seed(SEED + 1)
     mds0, _, _ = build_mixup_dataloader(s2.DATA_CONFIG, s2.CLASS_NAMES, batch_size=BATCH,
                                         pseudo_infos=infos0, training=True)
@@ -1886,7 +2442,8 @@ def phase_toda():
 
 # the keys and per-frame shapes of a pseudo info as JAX's
 # generate_pseudo_labels writes it with the perturbation
-# (toda_tpu/runtime/pseudo_label.py); K boxes, N padded points, V voxels
+# (toda_tpu/runtime/pseudo_label.py); K boxes, N padded points, V voxels.
+# The port's record adds 'frame_info' for a frame of a real dataset.
 PSEUDO_INFO_SHAPES = {"gt_boxes": ("K", 7), "gt_names": ("K",), "score": ("K",),
                       "point_perturb": ("N", 3), "p_voxel_coords": ("V", 3),
                       "p_voxel_perturb": ("V", 3), "p_voxel_size": (3,), "p_pc_range": (6,)}
@@ -1901,17 +2458,19 @@ def plain_cfg(c):
     return c
 
 
-def phase_cli():
+def phase_cli(data_root, sizes):
     """The TODA recipe through the port's CLIs on the card, world size 1:
-    ``stage1_cutmix_train.main`` (one epoch of 3 steps, then its
-    target-domain eval), then ``generate_pseudo_labels.main --perturb`` with
-    its checkpoint, then ``stage2_mixup_train_cl.main`` (one epoch of 3 CL
-    steps, then its target-domain eval), then ``test.main`` on the stage-2
-    checkpoint. The
-    configs are ``toda_cfgs()`` at full width, written as YAML files, with
-    ``cfg.ROOT_DIR`` at build/cli. Each stage's launches are asserted, its
-    checkpoint and the pseudo-info pickle's structure checked, the eval
-    result's keys checked against JAX's. Returns the launches summed."""
+    ``stage1_cutmix_train.main`` (one epoch, then its target-domain eval on
+    nuScenes val), then ``generate_pseudo_labels.main --perturb`` with its
+    checkpoint over the pseudo config's unlabelled split, then
+    ``stage2_mixup_train_cl.main`` (one epoch of CL steps, then its
+    target-domain eval), then ``test.main`` on the stage-2 checkpoint. The
+    configs are ``toda_cfgs(data_root)`` at full width, written as YAML
+    files, with ``cfg.ROOT_DIR`` at build/cli; ``sizes`` are the splits'
+    frame counts (``phase_data``), which set each stage's steps. Each
+    stage's launches are asserted, its checkpoint and the pseudo-info
+    pickle's structure checked, and the evals return the nuScenes metric's
+    keys, finite. Returns the launches summed."""
     import pickle
     import shutil
 
@@ -1927,21 +2486,16 @@ def phase_cli():
         test,
     )
 
-    s1, s2, plcfg = toda_cfgs()
+    s1, s2, pl = toda_cfgs(data_root)
+    plcfg = pl.PSEUDO_LABEL
     root = REPO / "build" / "cli"
     shutil.rmtree(root, ignore_errors=True)
     cfg_dir = root / "cfgs" / "toda"
     cfg_dir.mkdir(parents=True)
-    pseudo = {"CLASS_NAMES": s1.CLASS_NAMES, "DATA_CONFIG": toda_domain_cfg(s1, 100),
-              "MODEL": s1.MODEL, "OPTIMIZATION": s1.OPTIMIZATION, "PSEUDO_LABEL": plcfg}
-    # both stages evaluate on the target domain after training (the stage
-    # configs' DATA_CONFIG_TEST is nuScenes' val split, which the repo does
-    # not hold)
-    s1.DATA_CONFIG_TEST = toda_domain_cfg(s1, 100)
-    s2.DATA_CONFIG_TEST = toda_domain_cfg(s2, 100)
     files = {}
-    for name, c in (("stage1", s1), ("pseudo", pseudo), ("stage2", s2)):
-        c = {k: v for k, v in plain_cfg(c).items() if k not in ("TAG", "EXP_GROUP_PATH")}
+    for name, c in (("stage1", s1), ("pseudo", pl), ("stage2", s2)):
+        c = {k: v for k, v in plain_cfg(c).items()
+             if k not in ("TAG", "EXP_GROUP_PATH", "ROOT_DIR", "LOCAL_RANK")}
         files[name] = cfg_dir / f"{name}.yaml"
         files[name].write_text(yaml.safe_dump(c))
     global_cfg.ROOT_DIR = root
@@ -1963,46 +2517,58 @@ def phase_cli():
         log(f"phase CLI {name}: {walls[name]:.1f}s wall, launches {got}")
         return out
 
+    evals = -(-sizes["val"] // BATCH)
     stage("stage1_cutmix_train", stage1_cutmix_train.main,
           ["--cfg_file", str(files["stage1"]), "--extra_tag", "cli", "--epochs", "1", *b],
-          times(TODA_PER_STEP["train"], 3, times(TODA_PER_STEP["predict"], 2)))
+          times(TODA_PER_STEP["train"], (sizes["source"] + sizes["target"]) // BATCH,
+                times(TODA_PER_STEP["predict"], evals)))
     ck1 = run / "stage1" / "cli" / "ckpt" / "checkpoint_epoch_1.pth"
     assert sorted(p.name for p in ck1.parent.iterdir()) == [ck1.name]
     per_sweep = {k: TODA_PER_STEP["predict"][k] + v for k, v in TODA_PER_STEP["perturb"].items()}
+    n_pl = -(-sizes["unlabelled"] // BATCH)
     out = stage("generate_pseudo_labels --perturb", generate_pseudo_labels.main,
                 ["--cfg_file", str(files["pseudo"]), "--ckpt", str(ck1), "--perturb",
                  "--score_thresh", str(plcfg.SCORE_THRESH), "--eps", str(plcfg.EPS),
                  "--output", str(root / "pseudo_infos.pkl"), *b],
-                times(per_sweep, 2))
+                times(per_sweep, n_pl))
     with open(out, "rb") as f:
         infos = pickle.load(f)
-    assert len(infos) == 2 * BATCH, len(infos)
+    assert len(infos) == n_pl * BATCH, len(infos)
+    with open(Path(pl.DATA_CONFIG.DATA_PATH) / pl.DATA_CONFIG.INFO_PATH["train"][0], "rb") as f:
+        unlabelled = [i["token"] for i in pickle.load(f)]
     for i, info in enumerate(infos):
-        assert set(info) == set(PSEUDO_INFO_SHAPES) | {"index"}, set(info)
+        assert set(info) == set(PSEUDO_INFO_SHAPES) | {"index", "frame_info"}, set(info)
         k, v = len(info["gt_boxes"]), len(info["p_voxel_coords"])
         for key, shape in PSEUDO_INFO_SHAPES.items():
             want = tuple({"K": k, "V": v, "N": info["point_perturb"].shape[0]}.get(d, d)
                          for d in shape)
             assert np.asarray(info[key]).shape == want, (key, np.asarray(info[key]).shape)
-        assert info["p_voxel_coords"].dtype == np.int32 and info["index"] == i % TODA_SCENES
+        assert info["p_voxel_coords"].dtype == np.int32
+        assert info["index"] == info["frame_info"]["token"] == unlabelled[i % len(unlabelled)]
         assert set(np.unique(info["point_perturb"])) <= {-1.0, 0.0, 1.0}
     res2 = stage("stage2_mixup_train_cl", stage2_mixup_train_cl.main,
                  ["--cfg_file", str(files["stage2"]), "--pseudo_info_path", str(out),
                   "--pretrained_model", str(ck1), "--extra_tag", "cli", "--epochs", "1", *b],
-                 times(TODA_PER_STEP["cl"], 3, times(TODA_PER_STEP["predict"], 2)))
+                 times(TODA_PER_STEP["cl"], (sizes["stage2_labelled"] + len(infos)) // BATCH,
+                       times(TODA_PER_STEP["predict"], evals)))
     ck2 = run / "stage2" / "cli" / "ckpt" / "checkpoint_epoch_1.pth"
     assert ck2.exists()
     res = stage("test", test.main, ["--cfg_file", str(files["stage2"]), "--ckpt", str(ck2),
                                     "--extra_tag", "cli", *b],
-                times(TODA_PER_STEP["predict"], 2))
-    keys = {"mAP", "sec_per_example", "compile_sec"} | {f"AP_{c}@0.5" for c in s2.CLASS_NAMES} \
+                times(TODA_PER_STEP["predict"], evals))
+    keys = {"mAP", "NDS", "sec_per_example", "compile_sec"} \
+        | {f"m{k.upper()}" for k in ("trans_err", "scale_err", "orient_err", "vel_err",
+                                     "attr_err")} \
+        | {f"AP_{c}" for c in s2.CLASS_NAMES} \
+        | {f"AP_{c}@{d}" for c in s2.CLASS_NAMES for d in (0.5, 1.0, 2.0, 4.0)} \
         | {f"recall/{t}" for t in s2.MODEL.POST_PROCESSING.RECALL_THRESH_LIST}
-    assert set(res) == set(res2) == keys, (set(res), keys)
+    assert set(res) == set(res2) == keys, (set(res) ^ keys)
     assert all(math.isfinite(float(v)) for v in res.values()), res
     log(f"phase CLI: the TODA recipe through the CLIs in {sum(walls.values()):.1f}s "
         f"({', '.join(f'{k} {v:.1f}s' for k, v in walls.items())}); {len(infos)} pseudo infos "
-        f"with JAX's keys and shapes, {sum(len(i['gt_boxes']) for i in infos)} boxes; test "
-        f"result {{{', '.join(f'{k}: {float(v):.4g}' for k, v in sorted(res.items()))}}}; "
+        f"of the unlabelled split with JAX's keys and shapes and their frame_info, "
+        f"{sum(len(i['gt_boxes']) for i in infos)} boxes; test result on nuScenes val "
+        f"{{{', '.join(f'{k}: {float(v):.4g}' for k, v in sorted(res.items()))}}}; "
         f"launches summed {total}")
     return total
 
@@ -2287,12 +2853,19 @@ def main():
     del tbundle, state, step, tdev, tbatches
     torch.cuda.empty_cache()
 
-    # the TODA stages: stage-1 mix training, FGSM pseudo labels, stage-2 CL
+    # the TODA stages on fabricated Waymo and nuScenes files: stage-1 mix
+    # training, FGSM pseudo labels, stage-2 CL
     phase_toda_tiny()
-    trows, tl, toda = phase_toda()
-    for key, rs in trows.items():
-        rows[key].extend(rs)
-    cl = phase_cli()
+    (REPO / "build").mkdir(exist_ok=True)
+    data_root = Path(tempfile.mkdtemp(prefix="toda_data_", dir=REPO / "build"))
+    try:
+        data_metrics, sizes = phase_data(data_root)
+        trows, tl, toda = phase_toda(data_root)
+        for key, rs in trows.items():
+            rows[key].extend(rs)
+        cl = phase_cli(data_root, sizes)
+    finally:
+        shutil.rmtree(data_root, ignore_errors=True)
     for t in (tl, cl):
         launches["K1"] += t["K1"]
         launches["K2"] += t["dx"] + t["dW"] - t["dW_raw"]
@@ -2392,7 +2965,10 @@ def main():
         f"SECOND train peak memory {second_peak:.2f} GiB; TODA: "
         f"{toda['stage1_train_scans_per_s']:.2f} stage-1 train scans/s, "
         f"{toda['perturb_scans_per_s']:.2f} perturb scans/s, {toda['cl_train_scans_per_s']:.2f} "
-        f"CL train scans/s, CL peak memory {toda['cl_peak_gib']:.2f} GiB; on {card})")
+        f"CL train scans/s, CL peak memory {toda['cl_peak_gib']:.2f} GiB; host loader "
+        f"{data_metrics['loader_cutmix_scans_per_s']:.2f} CutMix and "
+        f"{data_metrics['loader_val_scans_per_s']:.2f} nuScenes val scans/s on one thread; "
+        f"on {card})")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,7 +7,9 @@ points move the numpy batches to their device. In a data-parallel run each
 rank reads the frames ``indices[rank::world]`` of the index list padded to a
 multiple of the world size (:59-67, 158-166), so every rank takes the same
 number of steps. ``build_cutmix_dataloader`` and ``build_mixup_dataloader``
-are the TODA stages' loaders (:175-189).
+are the TODA stages' loaders (:175-189). ``build_dataset`` knows the
+synthetic scenes, nuScenes, Waymo and the two mixing datasets; KITTI, Lyft
+and Pandaset are not ported yet.
 """
 
 import pickle
@@ -116,6 +118,10 @@ def build_dataset(dataset_cfg, class_names, training=False, root_path=None, logg
     name = dataset_cfg.DATASET
     if name == "SyntheticDataset":
         cls = SyntheticDataset
+    elif name == "NuScenesDataset":
+        from .nuscenes.nuscenes_dataset import NuScenesDataset as cls
+    elif name == "WaymoDataset":
+        from .waymo.waymo_dataset import WaymoDataset as cls
     elif name in ("CutMixDataset", "MixUpDataset"):
         from . import mix_dataset
 

@@ -1,9 +1,9 @@
 """Config-driven augmentation queue with record/replay (host numpy).
 
 The port's own copy of ``toda_tpu/datasets/augmentor/data_augmentor.py`` cut
-to the ops the synthetic and Waymo training configs run without gt_sampling
-(``random_world_flip`` along x and y, ``random_world_rotation``,
-``random_world_scaling``). Each op appends
+to the ops the synthetic, Waymo, nuScenes and TODA stage configs run
+(``gt_sampling``, ``random_world_flip`` along x and y,
+``random_world_rotation``, ``random_world_scaling``). Each world op appends
 ``(name, params)`` to ``data_dict['augmentation_params']``; a
 ``data_dict['replay_params']`` list replays a recorded sequence instead of
 drawing.
@@ -15,6 +15,7 @@ import numpy as np
 
 from ...utils import common_utils
 from . import augmentor_utils
+from .database_sampler import DataBaseSampler
 
 
 class DataAugmentor:
@@ -40,6 +41,10 @@ class DataAugmentor:
                 raise NotImplementedError(
                     f"augmentation {cur_cfg.NAME} is not ported to the PyTorch package yet")
             self.data_augmentor_queue.append(getattr(self, cur_cfg.NAME)(config=cur_cfg))
+
+    def gt_sampling(self, config=None):
+        return DataBaseSampler(root_path=self.root_path, sampler_cfg=config,
+                               class_names=self.class_names, logger=self.logger)
 
     def _replay_param(self, data_dict, name):
         for n, p in data_dict.get("replay_params", None) or []:

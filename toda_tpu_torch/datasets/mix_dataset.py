@@ -16,6 +16,13 @@ The port's own copy of ``toda_tpu/datasets/mix_dataset.py``:
 
 Any child dataset with ``get_raw_scene(i) -> (points, gt_boxes, gt_names)``
 plugs in. Random draws come from the global ``np.random`` in JAX's order.
+
+Two departures from JAX's, both repairs of faults that only real datasets
+show. Every scene's boxes are cut to their first ``BOX_COLUMNS`` (7)
+columns as they are read: JAX's concatenates Waymo's 7-column boxes with
+nuScenes' 9-column ones (velocity) in the mixers, and nuScenes' with the
+7-column pseudo boxes in stage 2, which raises. And a pseudo record with
+'frame_info' is loaded from it (``MixUpDataset._pseudo_sample``).
 """
 
 import numpy as np
@@ -24,6 +31,11 @@ from ..utils import box_utils
 from .dataset import DatasetTemplate
 from .processor import inter_domain_mix
 from .processor.intra_domain_mixup import intra_domain_point_mixup, intra_domain_point_mixup_cd
+
+# the box columns every domain and the pseudo labels carry: x, y, z, l, w,
+# h, yaw (nuScenes adds two of velocity, which the mixers cannot pair with
+# another domain's boxes and the stage configs' heads do not regress)
+BOX_COLUMNS = 7
 
 MIXERS = {
     "cutmix": inter_domain_mix.cutmix,
@@ -75,6 +87,7 @@ class CutMixDataset(DatasetTemplate):
 
     def _raw(self, dataset, idx):
         points, gt_boxes, gt_names = dataset.get_raw_scene(idx)
+        gt_boxes = gt_boxes[:, :BOX_COLUMNS]
         if self.class_mapping:
             gt_names = np.asarray([self.class_mapping.get(n, n) for n in gt_names])
         return {"points": points, "gt_boxes": gt_boxes, "gt_names": gt_names}
@@ -136,9 +149,12 @@ class MixUpDataset(DatasetTemplate):
     """Stage-2 intra-domain MixUp over ground-truth and pseudo-labelled frames.
 
     The pseudo pool is a list of dicts {'index', 'gt_boxes', 'gt_names',
-    'score', optional 'point_perturb' and the voxel-keyed 'p_voxel_*'
-    fields} of frames of ``base_dataset``, as ``generate_pseudo_labels``
-    writes them."""
+    'score', optional 'frame_info', 'point_perturb' and the voxel-keyed
+    'p_voxel_*' fields}, as ``generate_pseudo_labels`` writes them. A
+    record with 'frame_info' (a real dataset's unlabelled split) is loaded
+    from it by ``base_dataset``'s reader; one without names a frame of
+    ``base_dataset`` by its index, as JAX's reads every record, which fails
+    on a nuScenes token."""
 
     def __init__(self, dataset_cfg, class_names, training=True, root_path=None, logger=None,
                  base_dataset=None, pseudo_infos=None):
@@ -168,11 +184,15 @@ class MixUpDataset(DatasetTemplate):
     def _gt_sample(self, rng):
         idx = self.labeled_indices[rng.randint(len(self.labeled_indices))]
         points, gt_boxes, gt_names = self.base.get_raw_scene(idx)
-        return {"points": points, "gt_boxes": gt_boxes, "gt_names": gt_names}
+        return {"points": points, "gt_boxes": gt_boxes[:, :BOX_COLUMNS], "gt_names": gt_names}
 
     def _pseudo_sample(self, rng):
         info = self.pseudo_infos[rng.randint(len(self.pseudo_infos))]
-        points, _, _ = self.base.get_raw_scene(info["index"])
+        # a record of a split with per-frame infos names its frame by them:
+        # the base dataset loads it with its own reader (the labelled split
+        # does not hold it); a synthetic record by its index in the base
+        frame = info.get("frame_info")
+        points, _, _ = self.base.get_raw_scene(frame if frame is not None else info["index"])
         boxes = np.asarray(info["gt_boxes"], dtype=np.float32)
         names = np.asarray(info["gt_names"])
         scores = np.asarray(info.get("score", np.ones(len(boxes))))

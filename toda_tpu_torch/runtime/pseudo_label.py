@@ -12,6 +12,15 @@ detector on the device: the fused convs' dx kernels (K2's, with act=False at
 the raw first conv), the voxelizer's K4 (whose VJP is a K6 gather) and K5
 (whose VJP is plain). The parameters' ``requires_grad`` is off meanwhile, so
 no weight gradient (no dW kernel) runs, as JAX drops the unused cotangents.
+
+Two departures from JAX's, both repairs. A record also carries its frame's
+loading keys ('frame_info'): JAX's names the frame by its ``frame_id``
+alone, a nuScenes token that the stage-2 dataset, built over the labelled
+split, cannot index. And the perturbation's targets are (B, M, D + 1),
+the D box columns the head decodes (7, or 9 with velocity) and the
+class: JAX's takes the batch's box width, which for nuScenes (velocity, 10
+columns) gives the velocity-less CenterHead two target columns it has no
+output for.
 """
 
 import numpy as np
@@ -59,12 +68,19 @@ def filter_min_points_boxes(boxes, points, min_points):
     return box_utils.points_in_boxes_numpy(points, boxes[:, :7]).sum(axis=1) >= min_points
 
 
+# what a frame's loader reads: nuScenes' key frame, sweeps and token,
+# Waymo's sequence and sample index
+FRAME_INFO_KEYS = ("lidar_path", "sweeps", "token", "point_cloud")
+
+
 def generate_pseudo_labels(bundle, loader, dataset, class_names, score_thresh=0.2,
                            with_perturb=False, eps=1.0, min_points=0, logger=None):
     """Sweep ``loader`` (test mode); returns one pseudo info per frame, the
     pool ``MixUpDataset`` reads: {'index', 'gt_boxes' (K, 7), 'gt_names',
     'score'} of the detections that reach their class's threshold (and hold
-    ``min_points`` points), and with ``with_perturb`` the per-point
+    ``min_points`` points); where ``dataset`` has per-frame ``infos``,
+    'frame_info', the labelled frame's loading keys (``FRAME_INFO_KEYS``);
+    and with ``with_perturb`` the per-point
     'point_perturb' (N, 3) = eps * sign(grad) of the frame's padded points
     and its voxel-keyed form 'p_voxel_coords', 'p_voxel_perturb',
     'p_voxel_size', 'p_pc_range'.
@@ -77,6 +93,10 @@ def generate_pseudo_labels(bundle, loader, dataset, class_names, score_thresh=0.
         score_thresh = {c: float(score_thresh) for c in class_names}
     thresh_arr = np.asarray([score_thresh[c] for c in class_names], dtype=np.float32)
 
+    # the swept frames' own infos, by the frame_id a batch carries (a
+    # nuScenes token, else the index), so stage 2 can load a frame of
+    # this split through a dataset of another
+    frame_infos = {fi.get("token", i): fi for i, fi in enumerate(getattr(dataset, "infos", []))}
     pseudo_infos = []
     for batch in loader:
         arrays = {"points": batch["points"], "points_mask": batch["points_mask"]}
@@ -85,10 +105,14 @@ def generate_pseudo_labels(bundle, loader, dataset, class_names, score_thresh=0.
 
         perturb = None
         if with_perturb:
-            gt_like = np.zeros_like(np.asarray(batch["gt_boxes"]))
+            # targets of the box columns the head decodes (7, or 9 with
+            # velocity) and the class, whatever width the loader's boxes
+            # have (nuScenes': 9 and the class)
+            d = dets["pred_boxes"].shape[-1]
+            gt_like = np.zeros(np.asarray(batch["gt_boxes"]).shape[:2] + (d + 1,), np.float32)
             for i in range(b):
                 sel = np.where(dets["pred_mask"][i].astype(bool))[0][:gt_like.shape[1]]
-                gt_like[i, :len(sel), :7] = dets["pred_boxes"][i, sel, :7]
+                gt_like[i, :len(sel), :d] = dets["pred_boxes"][i, sel]
                 gt_like[i, :len(sel), -1] = dets["pred_labels"][i, sel]  # class: last column
             perturb = perturb_step({**arrays, "gt_boxes": gt_like}).cpu().numpy() * eps
 
@@ -107,6 +131,9 @@ def generate_pseudo_labels(bundle, loader, dataset, class_names, score_thresh=0.
                 "gt_names": np.asarray([class_names[lab - 1] for lab in labels[keep]]),
                 "score": scores[keep],
             }
+            frame = frame_infos.get(info["index"])
+            if frame is not None:
+                info["frame_info"] = {k: frame[k] for k in FRAME_INFO_KEYS if k in frame}
             if perturb is not None:
                 info["point_perturb"] = perturb[i]
                 mask_i = np.asarray(batch["points_mask"][i]).astype(bool)

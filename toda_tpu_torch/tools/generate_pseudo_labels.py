@@ -1,12 +1,20 @@
 """TODA pseudo labels, plain or with the FGSM input perturbation:
 ``python -m toda_tpu_torch.tools.generate_pseudo_labels --cfg_file ... --ckpt ...``.
 
-Counterpart of ``tools/generate_pseudo_labels.py``: a test-mode sweep of
-``UNLABEL_DATA_CONFIG`` (else ``DATA_CONFIG``) with the checkpoint's weights
+Counterpart of ``tools/generate_pseudo_labels.py``: a test-mode sweep of the
+unlabelled frames of ``UNLABEL_DATA_CONFIG`` (else ``DATA_CONFIG``) with the
+checkpoint's weights
 (``runtime.pseudo_label.generate_pseudo_labels``); ``--perturb`` adds each
 frame's eps * sign of the loss gradient in its points and its voxel-keyed
 form. The infos are pickled to ``--output`` (default
 ``<run dir>/pseudo_infos.pkl``).
+
+The unlabelled frames are the ones the config names under
+``INFO_PATH['train']``, read in test mode (no augmentation, no shuffle,
+the last batch padded with the first frames): ``build_unlabelled_loader``. JAX's
+CLI builds the same loader on the config as it stands, whose test mode
+reads ``INFO_PATH['test']``, the validation split. A config with no
+``INFO_PATH`` (synthetic scenes) is swept as it stands.
 """
 
 import argparse
@@ -18,6 +26,19 @@ from ..runtime import checkpoint as ckpt_lib
 from ..runtime.pseudo_label import generate_pseudo_labels
 from ..utils.common_utils import resolve_device
 from .cli_args import add_device_arg, load_cfg, make_logger, run_dirs
+
+
+def build_unlabelled_loader(cfg, batch_size, logger=None, workers=0):
+    """(dataset, loader) of the unlabelled frames in test mode: the data
+    config's test split set to the frames it names for training
+    (``INFO_PATH['train']``)."""
+    data_cfg = cfg.get("UNLABEL_DATA_CONFIG", cfg.DATA_CONFIG)
+    if "INFO_PATH" in data_cfg:
+        data_cfg = data_cfg.copy()
+        data_cfg.INFO_PATH = {**data_cfg.INFO_PATH, "test": list(data_cfg.INFO_PATH["train"])}
+    dataset, loader, _ = build_dataloader(data_cfg, cfg.CLASS_NAMES, batch_size, training=False,
+                                          logger=logger, workers=workers)
+    return dataset, loader
 
 
 def main(argv=None):
@@ -44,9 +65,8 @@ def main(argv=None):
 
     output_dir, _ = run_dirs(cfg, args.extra_tag)
     logger = make_logger(output_dir, "pseudo")
-    dataset, loader, _ = build_dataloader(cfg.get("UNLABEL_DATA_CONFIG", cfg.DATA_CONFIG),
-                                          cfg.CLASS_NAMES, args.batch_size or 2, training=False,
-                                          logger=logger, workers=args.workers)
+    dataset, loader = build_unlabelled_loader(cfg, args.batch_size or 2, logger=logger,
+                                              workers=args.workers)
     bundle = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), dataset, device=device)
     ckpt_lib.load_checkpoint(args.ckpt, bundle)
     infos = generate_pseudo_labels(bundle, loader, dataset, cfg.CLASS_NAMES,

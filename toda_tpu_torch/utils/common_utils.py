@@ -1,12 +1,19 @@
 """Common host helpers and the port's device rule.
 
-The numpy helpers, the logger and the seed setter are the port's own copies
-of the ones in ``toda_tpu/utils/common_utils.py`` that the data path and
-the CLIs need.
+The numpy helpers, the logger, the seed setter and the /dev/shm staging of
+a gt database (``shm_cache_file``, ``shm_cache_clear``) are the port's own
+copies of the ones in ``toda_tpu/utils/common_utils.py`` that the data path
+and the CLIs need; ``shm_cache_file`` names its copy by the source's path
+and modification time, where JAX's uses the file name alone.
 """
 
+import hashlib
 import logging
+import os
 import random
+import shutil
+import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -115,3 +122,65 @@ def set_random_seed(seed):
     random.seed(seed)
     np.random.seed(seed)
     torch.manual_seed(seed)
+
+
+SHM_DIR = "/dev/shm/toda_tpu_torch"
+
+
+def shm_cache_file(src_path, shm_dir=SHM_DIR, timeout_s=600.0):
+    """Stage a file into /dev/shm once per host; every process gets the shm
+    path (the gt database's ``SHM_CACHE``). The copy is named by the
+    source's absolute path, modification time and size, so a rewritten
+    source, or another checkout's file of the same name, gets a copy of its
+    own and never reads a stale one. The leader is elected with an O_EXCL
+    lock file and publishes through an atomic rename, so any mix of host
+    processes shares one copy with no process group; the others poll until
+    it appears. Falls back to the source path when /dev/shm is
+    unavailable."""
+    src_path = Path(src_path)
+    shm_dir = Path(shm_dir)
+    st = src_path.stat()
+    key = hashlib.sha1(
+        f"{src_path.resolve()}:{st.st_mtime_ns}:{st.st_size}".encode()).hexdigest()[:16]
+    dst = shm_dir / f"{src_path.stem}-{key}{src_path.suffix}"
+    if dst.exists():
+        return dst
+    try:
+        shm_dir.mkdir(parents=True, exist_ok=True)
+    except OSError:
+        return src_path
+
+    lock = dst.with_suffix(dst.suffix + ".lock")
+    try:
+        fd = os.open(str(lock), os.O_CREAT | os.O_EXCL | os.O_WRONLY)
+    except FileExistsError:
+        fd = None
+    except OSError:
+        return src_path
+
+    if fd is not None:  # leader: copy to a temp name, then rename
+        try:
+            tmp = dst.with_suffix(dst.suffix + f".tmp{os.getpid()}")
+            shutil.copyfile(str(src_path), str(tmp))
+            os.replace(str(tmp), str(dst))
+        finally:
+            os.close(fd)
+            lock.unlink(missing_ok=True)
+        return dst
+
+    deadline = time.monotonic() + timeout_s
+    while not dst.exists():
+        if not lock.exists() and not dst.exists():
+            # the leader died before publishing: elect again
+            return shm_cache_file(src_path, shm_dir=shm_dir, timeout_s=timeout_s)
+        if time.monotonic() > deadline:
+            return src_path  # read the original instead
+        time.sleep(0.05)
+    return dst
+
+
+def shm_cache_clear(shm_dir=SHM_DIR):
+    """Remove this host's staged copies."""
+    shm_dir = Path(shm_dir)
+    if shm_dir.exists():
+        shutil.rmtree(shm_dir, ignore_errors=True)
