@@ -66,6 +66,18 @@ Phases (none catches its own failure; any failure exits non-zero):
      as YAML files, each stage's launches asserted, its checkpoint, the
      pseudo-info pickle's structure and the nuScenes metric's keys (finite)
      checked, each stage's wall time logged;
+     Between the TODA stages and their CLIs, TODA's nuScenes -> KITTI track
+     (``phase_kitti``, ``second_iou_cfg``): a KITTI tree fabricated beside
+     the nuScenes files (HDL-64E scans, the published calibration text,
+     labels of every difficulty), ``create_infos kitti --with_gt_db``; the
+     polarmix CutMix loader's rate, points and occupied pillars, and the
+     KITTI target's gt_sampling pasting nothing (Car:15 under
+     CLASS_NAMES ['car']); the full-width SECOND-IoU's K1, K4, K5 calls of
+     one forward and dx, dW, K6 calls of one train step held against their
+     plain versions (logged, not in the kernels line), steady train and
+     predict rates, peak memory, profiles; then the stage-1 CLI for one
+     epoch with its KITTI val eval and ``test``, launches asserted, the
+     car AP_R40 of 3D, BEV and bbox finite at the three difficulties;
  13. tiny PartA2 in f32 on cuda and on cpu with the same weights and batch:
      the point and dense head outputs must agree, and the RoI head on the
      cpu's RoIs; once in full f32 and once with cuDNN's TF32 on, the
@@ -265,6 +277,7 @@ WAYMO_MAX_RANGE = 75.0
 WAYMO_SENSOR = (1.43, 0.0, 2.184)
 # (length, width, height) of a fabricated object of each class
 OBJECT_SIZES = {"car": (4.6, 1.95, 1.7), "truck": (7.5, 2.6, 3.2),
+                "Car": (3.9, 1.6, 1.56), "Van": (5.0, 1.9, 2.1),
                 "pedestrian": (0.75, 0.7, 1.75), "barrier": (0.5, 2.4, 1.0),
                 "Vehicle": (4.7, 2.1, 1.8), "Pedestrian": (0.9, 0.85, 1.8),
                 "Cyclist": (1.8, 0.8, 1.7)}
@@ -630,6 +643,141 @@ def fabricate_waymo(raw_dir, seed=SEED, sequences=2, frames=20, rows=WAYMO_ROWS,
         tio.write_tfrecords(raw_dir / f"segment-{context}_with_camera_labels.tfrecord",
                             records)
     return stats
+
+
+# HDL-64E (KITTI's velodyne): 64 beams over [-24.9, +2.0] deg, 120 m, 1.73 m
+# above the ground. 1.33M points/s at KITTI's 10 Hz is 2083 azimuth steps
+# (0.173 deg; the datasheet's 0.08-0.09 deg is at 5 Hz): ~120k returns
+KITTI_BEAMS_DEG = (-24.9, 2.0, 64)
+KITTI_AZIMUTHS = 2083
+KITTI_MAX_RANGE = 120.0
+KITTI_SENSOR_Z = 1.73
+KITTI_IMAGE = (375, 1242)  # (H, W) of image_2, the adapter's fallback shape
+# the calibration of KITTI's training frame 000000, in its text form
+KITTI_CALIB_ROWS = (
+    ("P0", "7.215377e+02 0.000000e+00 6.095593e+02 0.000000e+00 0.000000e+00 7.215377e+02 "
+     "1.728540e+02 0.000000e+00 0.000000e+00 0.000000e+00 1.000000e+00 0.000000e+00"),
+    ("P1", "7.215377e+02 0.000000e+00 6.095593e+02 -3.875744e+02 0.000000e+00 7.215377e+02 "
+     "1.728540e+02 0.000000e+00 0.000000e+00 0.000000e+00 1.000000e+00 0.000000e+00"),
+    ("P2", "7.215377e+02 0.000000e+00 6.095593e+02 4.485728e+01 0.000000e+00 7.215377e+02 "
+     "1.728540e+02 2.163791e-01 0.000000e+00 0.000000e+00 1.000000e+00 2.745884e-03"),
+    ("P3", "7.215377e+02 0.000000e+00 6.095593e+02 -3.395242e+02 0.000000e+00 7.215377e+02 "
+     "1.728540e+02 2.199936e+00 0.000000e+00 0.000000e+00 1.000000e+00 2.729905e-03"),
+    ("R0_rect", "9.999239e-01 9.837760e-03 -7.445048e-03 -9.869795e-03 9.999421e-01 "
+     "-4.278459e-03 7.402527e-03 4.351614e-03 9.999631e-01"),
+    ("Tr_velo_to_cam", "7.533745e-03 -9.999714e-01 -6.166020e-04 -4.069766e-03 "
+     "1.480249e-02 7.280733e-04 -9.998902e-01 -7.631618e-02 "
+     "9.998621e-01 7.523790e-03 1.480755e-02 -2.717806e-01"),
+    ("Tr_imu_to_velo", "9.999976e-01 7.553071e-04 -2.035826e-03 -8.086759e-01 "
+     "-7.854027e-04 9.998898e-01 -1.482298e-02 3.195559e-01 "
+     "2.024406e-03 1.482454e-02 9.998881e-01 -7.997231e-01"),
+)
+KITTI_CALIB = "".join(f"{name}: {values}\n" for name, values in KITTI_CALIB_ROWS)
+
+
+def kitti_label_lines(names, boxes, rng, calib):
+    """KITTI label_2 lines of the lidar ``boxes`` whose centre lies ahead of
+    the camera and whose image box overlaps the image: the camera box, the
+    projected 2D box clipped to the image, the share of it cut off as the
+    truncation, an occlusion level drawn per object (0, 1 or 2), alpha from
+    the viewing angle; then one DontCare region. Returns (lines, indices of
+    the labelled boxes)."""
+    import numpy as np
+
+    from toda_tpu_torch.utils import box_utils
+
+    cam = box_utils.boxes3d_lidar_to_kitti_camera(boxes, calib)
+    full = box_utils.boxes3d_kitti_camera_to_imageboxes(cam, calib)
+    clip = full.copy()
+    clip[:, [0, 2]] = np.clip(clip[:, [0, 2]], 0, KITTI_IMAGE[1] - 1)
+    clip[:, [1, 3]] = np.clip(clip[:, [1, 3]], 0, KITTI_IMAGE[0] - 1)
+    area = (full[:, 2] - full[:, 0]) * (full[:, 3] - full[:, 1])
+    kept = (clip[:, 2] - clip[:, 0]) * (clip[:, 3] - clip[:, 1])
+    lines, labelled = [], []
+    for m, name in enumerate(names):
+        trunc = 1.0 - kept[m] / max(area[m], 1e-6)
+        if cam[m, 2] < 2.0 or kept[m] <= 0 or trunc > 0.8:
+            continue
+        x, y, z, length, h, w, ry = cam[m]
+        ry = (ry + math.pi) % (2 * math.pi) - math.pi
+        alpha = -math.atan2(-boxes[m, 1], boxes[m, 0]) + ry
+        alpha = (alpha + math.pi) % (2 * math.pi) - math.pi
+        lines.append(f"{name} {trunc:.2f} {rng.choice([0, 0, 0, 1, 1, 2])} {alpha:.2f} "
+                     f"{clip[m, 0]:.2f} {clip[m, 1]:.2f} {clip[m, 2]:.2f} {clip[m, 3]:.2f} "
+                     f"{h:.2f} {w:.2f} {length:.2f} {x:.2f} {y:.2f} {z:.2f} {ry:.2f}")
+        labelled.append(m)
+    x1, y1 = rng.uniform(0, KITTI_IMAGE[1] - 80), rng.uniform(150, 200)
+    lines.append(f"DontCare -1 -1 -10 {x1:.2f} {y1:.2f} {x1 + rng.uniform(20, 80):.2f} "
+                 f"{y1 + rng.uniform(10, 30):.2f} -1 -1 -1 -1000 -1000 -1000 -10")
+    return lines, labelled
+
+
+def _kitti_frame(base, idx, rng, calib, elev, azimuths):
+    """One fabricated KITTI frame's scan and labels (``fabricate_kitti``);
+    returns (points, labels)."""
+    import numpy as np
+
+    names, boxes = place_objects(
+        rng, (("Car", rng.randint(4, 16)), ("Van", rng.randint(0, 3)),
+              ("Pedestrian", rng.randint(0, 5)), ("Cyclist", rng.randint(0, 3))),
+        50.0, 25.0, rng.normal(0, 0.1))
+    boxes[:, 2] -= KITTI_SENSOR_Z
+    boxes[:, 6] = (boxes[:, 6] + math.pi) % (2 * math.pi) - math.pi
+    az = np.linspace(-math.pi, math.pi, azimuths, endpoint=False) + rng.uniform(0, 0.003)
+    e, a = np.meshgrid(elev, az, indexing="ij")
+    dirs = np.stack([np.cos(e) * np.cos(a), np.cos(e) * np.sin(a), np.sin(e)],
+                    -1).reshape(-1, 3).astype(np.float32)
+    dist, obj = ray_cast(np.zeros(3), dirs, boxes, -KITTI_SENSOR_Z, KITTI_MAX_RANGE)
+    live = dist > 0
+    dist = dist[live] + rng.normal(0, 0.01, int(live.sum())).astype(np.float32)
+    pts = np.empty((len(dist), 4), np.float32)
+    pts[:, :3] = dirs[live] * dist[:, None]
+    pts[:, 3] = np.where(obj[live] >= 0, rng.uniform(0.2, 0.9, len(dist)),
+                         rng.uniform(0.0, 0.3, len(dist)))
+    pts.tofile(str(base / "training" / "velodyne" / f"{idx}.bin"))
+    (base / "training" / "calib" / f"{idx}.txt").write_text(KITTI_CALIB)
+    lines, labelled = kitti_label_lines(names, boxes.astype(np.float32), rng, calib)
+    (base / "training" / "label_2" / f"{idx}.txt").write_text("\n".join(lines) + "\n")
+    return len(pts), len(labelled)
+
+
+def fabricate_kitti(root, seed=SEED, train=16, val=8, azimuths=KITTI_AZIMUTHS):
+    """A KITTI object tree under ``root``: training/velodyne/<id>.bin ((N, 4)
+    float32 x, y, z, reflectance), training/calib/<id>.txt (``KITTI_CALIB``),
+    training/label_2/<id>.txt (``kitti_label_lines``) and
+    ImageSets/{train,val}.txt, ``train`` + ``val`` frames. Each scan is
+    ray-cast with the HDL-64E geometry (``KITTI_BEAMS_DEG``, ``azimuths``,
+    ``KITTI_MAX_RANGE``) against the ground and a street's objects: 4-15
+    cars, 0-2 vans, 0-4 pedestrians and 0-2 cyclists. Cars far off (small
+    image boxes), the occlusion draw and boxes cut by the image edge give
+    every difficulty. Frames are cast on a thread pool, each from its own
+    seeded generator. ``azimuths`` below 2083 thins the scans (the tests'
+    tiny files). Returns {'frames', 'points', 'labels'}."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from toda_tpu_torch.datasets.kitti.calibration_kitti import Calibration
+
+    base = Path(root)
+    for sub in ("velodyne", "calib", "label_2"):
+        (base / "training" / sub).mkdir(parents=True, exist_ok=True)
+    (base / "ImageSets").mkdir(parents=True, exist_ok=True)
+    calib_file = base / "calib.txt"
+    calib_file.write_text(KITTI_CALIB)
+    calib = Calibration(str(calib_file))
+    calib_file.unlink()
+    elev = np.radians(np.linspace(*KITTI_BEAMS_DEG))
+    ids = [f"{i:06d}" for i in range(train + val)]
+    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+        done = list(pool.map(lambda i: _kitti_frame(
+            base, ids[i], np.random.RandomState([seed, 2, i]), calib, elev, azimuths),
+            range(len(ids))))
+    (base / "ImageSets" / "train.txt").write_text("\n".join(ids[:train]) + "\n")
+    (base / "ImageSets" / "val.txt").write_text("\n".join(ids[train:]) + "\n")
+    return {"frames": len(ids), "points": sum(n for n, _ in done),
+            "labels": sum(k for _, k in done)}
 
 
 def toda_cfgs(data_root=None):
@@ -1074,7 +1222,9 @@ def phase_kernels(bundle, batch):
             Recorder(pillar_sparse, "unpack_pillars") as k5:
         out = bundle.forward(bundle.to_device(batch))
     torch.cuda.synchronize()
-    for k, v in out["center_pred_dicts"][0].items():
+    heads = out["center_pred_dicts"][0] if "center_pred_dicts" in out else {
+        k: out[k] for k in ("cls_preds", "box_preds", "dir_cls_preds", "roi_ious") if k in out}
+    for k, v in heads.items():
         assert torch.isfinite(v).all(), f"full-width head output {k} is not finite"
     assert len(k1.calls) == 11 and len(k4.calls) == 2 and len(k5.calls) == 1, \
         (len(k1.calls), len(k4.calls), len(k5.calls))
@@ -2440,6 +2590,198 @@ def phase_toda(data_root):
     return rows, total, metrics
 
 
+SECOND_IOU_CFG = "tools/cfgs/stage1_targetmix/second_iou_nus_kitti_targetmix.yaml"
+# launches of one SECOND-IoU step (PillarBackBone8x on the fused contract):
+# a train step takes every conv's dW and every conv's dx but the first's,
+# act=False only at the first conv (its input is the voxelizer's means)
+SECOND_IOU_PER_STEP = {
+    "train": {"K1": 11, "dx": 10, "dx_raw": 0, "dW": 11, "dW_raw": 1, "K4": 2, "K5": 1,
+              "K6": 1, "K7-K10": 0},
+    "predict": {"K1": 11, "dx": 0, "dx_raw": 0, "dW": 0, "dW_raw": 0, "K4": 2, "K5": 1,
+                "K6": 0, "K7-K10": 0},
+}
+# the car AP_R40 keys of the KITTI metric the track's evals must give
+KITTI_AP_KEYS = tuple(f"car_{m}_{d}_R40" for m in ("3d", "bev", "bbox")
+                      for d in ("easy", "moderate", "hard"))
+
+
+def second_iou_cfg(data_root=None):
+    """TODA's nuScenes -> KITTI stage 1 at full width:
+    tools/cfgs/stage1_targetmix/second_iou_nus_kitti_targetmix.yaml with only
+    the domains' DATA_PATHs moved to the fabricated files under
+    ``data_root`` (None keeps them). SECONDNetIoU: PillarBackBone8x [16, 32,
+    64, 64], MAX_PILLARS 32768, BF16, the fused convs; HeightCompression
+    320; BEV [5, 5] x [128, 256] / [256, 256]; AnchorHeadSingle (car, 2
+    rotations, the direction classifier); SECONDHead (128 RoIs, 7 x 7 grid,
+    SHARED_FC [256, 256]); num_pts_iou_cls rescoring at IOU_WEIGHT 0.68,
+    NMS 1024 -> 128; range [-40, 40]^2 x [-3, 1], voxel (0.05, 0.05, 0.1) ->
+    1600 x 1600 x 40, 65536 points a scan; CutMixDataset polarmix (ASC,
+    CUTMIX_PROB 0.5) of nuScenes (10 sweeps, CBGS, gt_sampling car:2) and
+    KITTI (gt_sampling Car:15, CLASS_MAPPING Car -> car); adam_onecycle at
+    LR 0.003, batch 4; DATA_CONFIG_TEST KITTI val, EVAL_METRIC kitti."""
+    from toda_tpu_torch.config import EDict, cfg_from_yaml_file
+
+    cfg = cfg_from_yaml_file(str(REPO / SECOND_IOU_CFG), EDict())
+    if data_root is not None:
+        nus, kitti = str(Path(data_root) / "nuscenes"), str(Path(data_root) / "kitti")
+        cfg.DATA_CONFIG.SOURCE_CFG.DATA_PATH = nus
+        cfg.DATA_CONFIG.TARGET_CFG.DATA_PATH = kitti
+        cfg.DATA_CONFIG_TEST.DATA_PATH = kitti
+    return cfg
+
+
+def check_kitti_metric(result, what):
+    """The car AP_R40 of 3D, BEV and bbox at the three difficulties are
+    in the result and finite."""
+    missing = [k for k in KITTI_AP_KEYS if k not in result]
+    assert not missing, f"{what}: KITTI metric lacks {missing}"
+    assert all(math.isfinite(float(result[k])) for k in KITTI_AP_KEYS), result
+    return {k: round(float(result[k]), 4) for k in KITTI_AP_KEYS}
+
+
+def phase_kitti(data_root):
+    """TODA's nuScenes -> KITTI stage 1 on the card (``second_iou_cfg``): a
+    KITTI tree fabricated under ``data_root`` beside ``phase_data``'s
+    nuScenes files (``fabricate_kitti``: 16 train, 8 val HDL-64E frames),
+    its infos and gt database from ``create_infos kitti``. The host loader
+    prepares 4 batches of polarmix CutMix samples on one thread (scans/s,
+    points, occupied pillars against MAX_PILLARS; the KITTI target's
+    gt_sampling must paste nothing: Car:15 keys no pool under
+    CLASS_NAMES ['car']). On those batches: every K1, K4, K5 call of one
+    forward and every dx, dW, K6 call of one train step held against its
+    plain version (the present-pair share of each K1 call logged), the
+    steady train and predict rates on device-resident batches, peak memory
+    and profiles. Then the stage-1 CLI's ``main`` for one epoch at batch 4
+    (with its KITTI val eval) and ``test``'s ``main`` on its checkpoint,
+    launches asserted per stage, the car AP_R40 of 3D, BEV and bbox finite
+    at the three difficulties. Returns (rows, launches, {metric: value})."""
+    import shutil
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from toda_tpu_torch.config import cfg as global_cfg
+    from toda_tpu_torch.datasets import build_dataset
+    from toda_tpu_torch.models import build_network
+    from toda_tpu_torch.runtime.train_utils import create_train_state, make_train_step
+    from toda_tpu_torch.tools import create_infos, stage1_cutmix_train, test
+
+    root = Path(data_root)
+    t = time.time()
+    fk = fabricate_kitti(root / "kitti")
+    fab_s = time.time() - t
+    t = time.time()
+    create_infos.main(["kitti", "--data_path", str(root / "kitti"), "--with_gt_db",
+                       "--classes", "Car,Pedestrian,Cyclist"])
+    log(f"phase KITTI data: {fk['frames']} HDL-64E frames, {fk['points'] / fk['frames']:.0f} "
+        f"points a scan, {fk['labels']} labelled objects; fabricated in {fab_s:.1f}s, "
+        f"create_infos kitti --with_gt_db in {time.time() - t:.1f}s")
+
+    cfg = second_iou_cfg(root)
+    metrics = {}
+    np.random.seed(SEED)
+    ds = build_dataset(cfg.DATA_CONFIG, cfg.CLASS_NAMES, training=True)
+    sampler = ds.target.data_augmentor.data_augmentor_queue[0]
+    calls = []
+
+    def counted(data_dict):
+        n = len(data_dict["gt_boxes"])
+        out = sampler(data_dict)
+        calls.append(len(out["gt_boxes"]) - n)
+        return out
+
+    ds.target.data_augmentor.data_augmentor_queue[0] = counted
+    n = 4 * BATCH
+    t = time.time()
+    samples = [ds[i] for i in np.random.permutation(len(ds))[:n]]
+    metrics["loader_scans_per_s"] = n / (time.time() - t)
+    pillars = [occupied_pillars(smp, ds) for smp in samples]
+    cap = int(cfg.MODEL.BACKBONE_3D.MAX_PILLARS)
+    metrics["pillars"] = (min(pillars), float(np.mean(pillars)), max(pillars))
+    kitti_raw = [len(ds.target.get_raw_scene(i)[0]) for i in range(len(ds.target))]
+    log(f"  CutMix polarmix (nuScenes {len(ds.source)} -> KITTI {len(ds.target)} frames): "
+        f"{metrics['loader_scans_per_s']:.2f} scans/s on one host thread ({n} scans); KITTI "
+        f"scans {min(kitti_raw)}-{max(kitti_raw)} points, {ds.max_points} kept; occupied "
+        f"pillars {min(pillars)}-{max(pillars)} (mean {np.mean(pillars):.0f}) against "
+        f"MAX_PILLARS {cap}: the cap drops {sum(max(0, v - cap) for v in pillars) / n:.0f} a "
+        f"scan, on {sum(v > cap for v in pillars)} of {n} scans; the KITTI target's "
+        f"gt_sampling pasted {sum(calls)} objects over {len(calls)} calls (groups "
+        f"{sampler.sample_groups})")
+    # the class-key question of the reference: SAMPLE_GROUPS Car:15 keys a
+    # pool CLASS_NAMES ['car'] never fills
+    assert calls and sum(calls) == 0 and not sampler.sample_groups, \
+        (calls, sampler.sample_groups)
+    batches = [ds.collate_batch(samples[i * BATCH:(i + 1) * BATCH]) for i in range(4)]
+    val = build_dataset(cfg.DATA_CONFIG_TEST, cfg.CLASS_NAMES)
+    vbatches = [val.collate_batch([val[(i * BATCH + j) % len(val)] for j in range(BATCH)])
+                for i in range(-(-len(val) // BATCH))]
+
+    # the kernels on the track's traffic, then its steady rates
+    bundle = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), ds, device="cuda", seed=SEED)
+    state, _ = create_train_state(bundle, cfg.OPTIMIZATION, SCHEDULE_STEPS)
+    step = make_train_step(bundle)
+    log("phase KITTI kernels on the SECOND-IoU CutMix batches:")
+    rows = phase_kernels(bundle, batches[0])
+    rows.update(phase_train_kernels(state, step, batches[0]))
+    metrics["k1_share"] = [round(r["share"], 3) for r in rows["K1"]]
+    metrics["kernel_ms"] = {k: round(sum(r["ms"] for r in rs), 4) for k, rs in rows.items()}
+    log(f"  present-pair share of each K1 call (the 11 convs in order: stage 1 at 1600 x "
+        f"1600, then the down conv and two convs of stages 2-4): {metrics['k1_share']}; "
+        f"summed ms {metrics['kernel_ms']}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    run = train_run(bundle, state, step, batches)
+    metrics["train_scans_per_s"] = steady_rate(run)
+    metrics["train_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    phase_profile(run, "SECOND-IoU train step")
+    predict = predict_run(bundle, vbatches)
+    metrics["predict_scans_per_s"] = steady_rate(predict)
+    phase_profile(predict, "SECOND-IoU predict")
+    log(f"phase KITTI throughput: train {metrics['train_scans_per_s']:.2f} scans/s, predict "
+        f"{metrics['predict_scans_per_s']:.2f} scans/s steady state (batch {BATCH}, best of 3 x "
+        f"10 steps, read back every step); train peak memory "
+        f"{metrics['train_peak_gib']:.2f} GiB")
+    del bundle, state, step, run, predict, batches, samples
+    torch.cuda.empty_cache()
+
+    # the track through its CLIs: stage 1 (with its KITTI val eval), then test
+    cli = REPO / "build" / "cli_kitti"
+    shutil.rmtree(cli, ignore_errors=True)
+    (cli / "cfgs" / "kitti").mkdir(parents=True)
+    cfg_file = cli / "cfgs" / "kitti" / "second_iou_stage1.yaml"
+    cfg_file.write_text(yaml.safe_dump({k: v for k, v in plain_cfg(cfg).items() if k not in (
+        "TAG", "EXP_GROUP_PATH", "ROOT_DIR", "LOCAL_RANK")}))
+    global_cfg.ROOT_DIR = cli
+    steps = len(ds) // BATCH
+    evals = len(vbatches)
+    total, results = {}, {}
+    for name, fn, argv, want in (
+            ("stage1_cutmix_train", stage1_cutmix_train.main,
+             ["--epochs", "1"], times(SECOND_IOU_PER_STEP["train"], steps,
+                                      times(SECOND_IOU_PER_STEP["predict"], evals))),
+            ("test", test.main,
+             ["--ckpt", str(cli / "output" / "kitti" / "second_iou_stage1" / "kitti" / "ckpt"
+                            / "checkpoint_epoch_1.pth")],
+             times(SECOND_IOU_PER_STEP["predict"], evals))):
+        np.random.seed(SEED)
+        reset_launches()
+        t0 = time.time()
+        results[name] = fn(["--cfg_file", str(cfg_file), "--extra_tag", "kitti", "--batch_size",
+                            str(BATCH), *argv])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        got = toda_launches()
+        assert got == want, f"CLI {name}: launches {got}, want {want}"
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+        metrics[f"{name}_s"] = wall
+        log(f"phase KITTI CLI {name}: {wall:.1f}s wall, launches {got}; car AP_R40 "
+            f"{check_kitti_metric(results[name], name)}")
+    assert steps >= 4, steps
+    return rows, total, metrics
+
+
 # the keys and per-frame shapes of a pseudo info as JAX's
 # generate_pseudo_labels writes it with the perturbation
 # (toda_tpu/runtime/pseudo_label.py); K boxes, N padded points, V voxels.
@@ -2863,10 +3205,11 @@ def main():
         trows, tl, toda = phase_toda(data_root)
         for key, rs in trows.items():
             rows[key].extend(rs)
+        _, kl, kitti = phase_kitti(data_root)
         cl = phase_cli(data_root, sizes)
     finally:
         shutil.rmtree(data_root, ignore_errors=True)
-    for t in (tl, cl):
+    for t in (tl, kl, cl):
         launches["K1"] += t["K1"]
         launches["K2"] += t["dx"] + t["dW"] - t["dW_raw"]
         launches["K3"] += t["dW_raw"]
@@ -2958,7 +3301,8 @@ def main():
         f"over the counted runs: eval_one_epoch of each model, {TRAIN_STEPS} CenterPoint-Res "
         f"and {SECOND_TRAIN_STEPS} SECOND train steps, the TODA stages (stage-1 train_model, "
         f"the pseudo-label sweep, {TODA_CL_STEPS} CL steps), the same recipe through the "
-        f"CLIs (with its target-domain evals and test.py), K10's checks. "
+        f"CLIs (with its target-domain evals and test.py), the nuScenes -> KITTI track's "
+        f"stage-1 and test CLIs, K10's checks. "
         f"{scans_per_s:.2f} CenterPoint-Res predict scans/s, {train_scans:.2f} train scans/s, "
         f"train peak memory {train_peak:.2f} GiB, {parta2_scans:.2f} PartA2 predict scans/s, "
         f"{second_scans:.2f} SECOND predict scans/s, {second_train:.2f} SECOND train scans/s, "
@@ -2968,7 +3312,10 @@ def main():
         f"CL train scans/s, CL peak memory {toda['cl_peak_gib']:.2f} GiB; host loader "
         f"{data_metrics['loader_cutmix_scans_per_s']:.2f} CutMix and "
         f"{data_metrics['loader_val_scans_per_s']:.2f} nuScenes val scans/s on one thread; "
-        f"on {card})")
+        f"SECOND-IoU nuScenes -> KITTI: {kitti['train_scans_per_s']:.2f} train and "
+        f"{kitti['predict_scans_per_s']:.2f} predict scans/s, train peak memory "
+        f"{kitti['train_peak_gib']:.2f} GiB, host loader {kitti['loader_scans_per_s']:.2f} "
+        f"polarmix scans/s; on {card})")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,7 @@ rank reads the frames ``indices[rank::world]`` of the index list padded to a
 multiple of the world size (:59-67, 158-166), so every rank takes the same
 number of steps. ``build_cutmix_dataloader`` and ``build_mixup_dataloader``
 are the TODA stages' loaders (:175-189). ``build_dataset`` knows the
-synthetic scenes, nuScenes, Waymo and the two mixing datasets; KITTI, Lyft
+synthetic scenes, nuScenes, Waymo, KITTI and the two mixing datasets; Lyft
 and Pandaset are not ported yet.
 """
 
@@ -122,6 +122,8 @@ def build_dataset(dataset_cfg, class_names, training=False, root_path=None, logg
         from .nuscenes.nuscenes_dataset import NuScenesDataset as cls
     elif name == "WaymoDataset":
         from .waymo.waymo_dataset import WaymoDataset as cls
+    elif name == "KittiDataset":
+        from .kitti.kitti_dataset import KittiDataset as cls
     elif name in ("CutMixDataset", "MixUpDataset"):
         from . import mix_dataset
 

@@ -17,12 +17,17 @@ The port's own copy of ``toda_tpu/datasets/mix_dataset.py``:
 Any child dataset with ``get_raw_scene(i) -> (points, gt_boxes, gt_names)``
 plugs in. Random draws come from the global ``np.random`` in JAX's order.
 
-Two departures from JAX's, both repairs of faults that only real datasets
+Three departures from JAX's, all repairs of faults that only real datasets
 show. Every scene's boxes are cut to their first ``BOX_COLUMNS`` (7)
 columns as they are read: JAX's concatenates Waymo's 7-column boxes with
 nuScenes' 9-column ones (velocity) in the mixers, and nuScenes' with the
-7-column pseudo boxes in stage 2, which raises. And a pseudo record with
-'frame_info' is loaded from it (``MixUpDataset._pseudo_sample``).
+7-column pseudo boxes in stage 2, which raises. A mixed sample's two
+domains, once augmented, keep the point columns the mixing dataset's
+POINT_FEATURE_ENCODING names, picked by name: JAX's concatenates
+nuScenes' 5 columns (the time lag) with KITTI's 4, which raises (where the
+widths agree, as Waymo's and nuScenes' do, the encoder keeps the same
+columns either way). And a pseudo record with 'frame_info' is loaded from
+it (``MixUpDataset._pseudo_sample``).
 """
 
 import numpy as np
@@ -92,13 +97,16 @@ class CutMixDataset(DatasetTemplate):
             gt_names = np.asarray([self.class_mapping.get(n, n) for n in gt_names])
         return {"points": points, "gt_boxes": gt_boxes, "gt_names": gt_names}
 
-    @staticmethod
-    def _augment_domain(dataset, d):
-        if dataset.data_augmentor is None:
-            return d
-        d = dataset.data_augmentor.forward(dict(d))
-        d.pop("augmentation_params", None)
-        return d
+    def _augment_domain(self, dataset, d):
+        """The domain's own augmentation, then the point columns of this
+        dataset's encoding (``src_feature_list``), picked by name from the
+        domain's."""
+        if dataset.data_augmentor is not None:
+            d = dataset.data_augmentor.forward(dict(d))
+            d.pop("augmentation_params", None)
+        names = dataset.point_feature_encoder.src_feature_list
+        cols = [names.index(n) for n in self.point_feature_encoder.src_feature_list]
+        return {**d, "points": d["points"][:, cols]}
 
     def _mixer_kwargs(self, mix_type):
         if mix_type == "cutmix":

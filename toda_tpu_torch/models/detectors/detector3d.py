@@ -8,10 +8,12 @@ box coders and the anchor target assigner (:443-470, :521-525),
 ``loss`` / ``head_loss`` (the AnchorHeadSingle and CenterHead branches,
 :540-567, :616-644), ``decode_topk`` (:646-659) and ``predict`` /
 ``post_processing`` (the two-stage, anchor and CenterHead branches,
-:661-743). Three detectors are ported: CenterPoint(-Res)
+:661-743). Four detectors are ported: CenterPoint(-Res)
 (PillarResBackBone8x + CenterHead), SECOND (PillarBackBone8x +
-AnchorHeadSingle), both with training, and PartA2 (UNetV2 + AnchorHeadSingle
-+ PointHeadIntraPart + PartA2FCHead, inference).
+AnchorHeadSingle) and SECOND-IoU (SECOND + SECONDHead: top-NUM_ROIS
+proposals, the IoU loss :598-603, the rescoring :685-703), all three with
+training, and PartA2 (UNetV2 + AnchorHeadSingle + PointHeadIntraPart +
+PartA2FCHead, inference).
 """
 
 from dataclasses import dataclass
@@ -20,6 +22,7 @@ import torch
 from torch import nn
 
 from ...ops.nms import class_agnostic_nms, top_k
+from ...ops.points_in_boxes import count_points_in_boxes
 from ...utils.box_coder_utils import ResidualCoder
 from ...weights import init_like_flax_
 from ..backbones_2d.base_bev_backbone import BaseBEVBackbone
@@ -37,12 +40,14 @@ from ..dense_heads.target_assigner.anchor_generator import AnchorGenerator
 from ..dense_heads.target_assigner.axis_aligned_target_assigner import AxisAlignedTargetAssigner
 from ..roi_heads.parta2_head import PartA2FCHead
 from ..roi_heads.roi_utils import generate_predicted_boxes_roi, proposal_layer
+from ..roi_heads.second_head import SECONDHead, rescore_detections, second_head_loss
 
 BACKBONES_3D = {"PillarBackBone8x": PillarBackBone8x,
                 "PillarResBackBone8x": PillarResBackBone8x, "UNetV2": UNetV2}
 # the ported detectors (MODEL.NAME): (dense head, point head, roi head)
 DETECTORS = {"CenterPoint": ("CenterHead", None, None),
              "SECONDNet": ("AnchorHeadSingle", None, None),
+             "SECONDNetIoU": ("AnchorHeadSingle", None, "SECONDHead"),
              "PartA2Net": ("AnchorHeadSingle", "PointHeadIntraPart", "PartA2FCHead")}
 
 
@@ -117,11 +122,15 @@ class Detector3D(nn.Module):
             self.dense_head = AnchorHeadSingle(model_cfg["DENSE_HEAD"], bev_ch, num_class,
                                                num_anchors_per_location, box_coder.code_size)
             self.register_buffer("anchors", torch.as_tensor(anchors), persistent=False)
-        if roi_head is not None:
+        roi_cfg = model_cfg.get("ROI_HEAD")
+        if roi_head == "SECONDHead":
+            self.roi_head = SECONDHead(roi_cfg, bev_ch, meta.point_cloud_range, meta.voxel_size,
+                                       int(roi_cfg.get("BEV_STRIDE", 8)))
+            self.stages += ["proposals", "roi_head"]
+        elif roi_head is not None:
             point_ch = self.backbone_3d.num_point_features
             self.point_head = PointHeadIntraPart(model_cfg["POINT_HEAD"], point_ch, num_class)
-            self.roi_head = PartA2FCHead(model_cfg["ROI_HEAD"], point_ch, num_class,
-                                         box_coder.code_size)
+            self.roi_head = PartA2FCHead(roi_cfg, point_ch, num_class, box_coder.code_size)
             self.stages += ["point_head", "proposals", "roi_head"]
 
     def forward(self, batch_dict):
@@ -134,16 +143,25 @@ class Detector3D(nn.Module):
         return batch_dict
 
     def proposals(self, batch_dict):
-        """The anchor head's decoded boxes through the proposal NMS of the
-        RoI head's NMS_CONFIG (TEST in eval, TRAIN in training) -> rois,
-        roi_scores, roi_labels, roi_mask."""
+        """The anchor head's decoded boxes -> rois, roi_scores, roi_labels,
+        roi_mask, detached (JAX :263-272): through the proposal NMS of the
+        RoI head's NMS_CONFIG (TEST in eval, TRAIN in training), or without
+        one the NUM_ROIS best anchors by their best class score (:331-340)."""
+        roi_cfg = self.model_cfg["ROI_HEAD"]
         cls_logits, box_preds = generate_predicted_boxes(
             batch_dict, self.anchors, self.model_cfg["DENSE_HEAD"], self.box_coder)
-        nms_cfg = self.model_cfg["ROI_HEAD"]["NMS_CONFIG"]
-        nms_cfg = nms_cfg.get("TRAIN" if self.training else "TEST", nms_cfg)
-        rois, scores, labels, mask = proposal_layer(box_preds, cls_logits, nms_cfg)
-        batch_dict.update(rois=rois[..., :7], roi_scores=scores, roi_labels=labels,
-                          roi_mask=mask)
+        nms_cfg = roi_cfg.get("NMS_CONFIG")
+        if nms_cfg is not None:
+            nms_cfg = nms_cfg.get("TRAIN" if self.training else "TEST", nms_cfg)
+            rois, scores, labels, mask = proposal_layer(box_preds, cls_logits, nms_cfg)
+        else:
+            probs, labels = torch.sigmoid(cls_logits).max(dim=-1)
+            scores, idx = top_k(probs, int(roi_cfg.get("NUM_ROIS", 128)))
+            rois = torch.gather(box_preds, 1, idx[..., None].expand(-1, -1, box_preds.shape[-1]))
+            labels = torch.gather(labels, 1, idx) + 1
+            mask = torch.ones_like(scores, dtype=torch.bool)
+        batch_dict.update(rois=rois[..., :7].detach(), roi_scores=scores.detach(),
+                          roi_labels=labels, roi_mask=mask)
         return batch_dict
 
 
@@ -187,14 +205,22 @@ class DetectorBundle:
 
     def head_loss(self, out, gt_boxes):
         """(total, tb) detection loss of the forward outputs: the
-        CenterHead's, or the anchor head's on the assigner's targets
-        (single-stage detectors)."""
-        if hasattr(self.module, "roi_head"):
-            raise NotImplementedError("training of the two-stage detectors is not ported yet")
+        CenterHead's, or the anchor head's on the assigner's targets, plus
+        for SECOND-IoU IOU_LOSS_WEIGHT times the IoU loss (``rpn_loss``
+        then holds the total, as in JAX)."""
+        roi_head = getattr(self.module, "roi_head", None)
+        if roi_head is not None and not isinstance(roi_head, SECONDHead):
+            raise NotImplementedError("training of PartA2 is not ported yet")
         if self.dense_head_name == "CenterHead":
             return self.module.dense_head.get_loss(out, gt_boxes)
-        return anchor_head_loss(out, self.assigner.assign(gt_boxes),
-                                self.model_cfg["DENSE_HEAD"], self.num_class)
+        total, tb = anchor_head_loss(out, self.assigner.assign(gt_boxes),
+                                     self.model_cfg["DENSE_HEAD"], self.num_class)
+        if roi_head is not None:
+            iou_loss, iou_tb = second_head_loss(out, gt_boxes)
+            w = float(self.model_cfg["ROI_HEAD"].get("IOU_LOSS_WEIGHT", 1.0))
+            total = total + w * iou_loss
+            tb = {**tb, **iou_tb, "rpn_loss": total}
+        return total, tb
 
     def loss(self, batch_dict, training=True):
         """Forward and the loss: (total, tb dict of scalar tensors),
@@ -246,17 +272,31 @@ class DetectorBundle:
 
     def decode(self, out):
         """Boxes, scores and labels before the final NMS: the RoI head's
-        refined boxes scored by its cls branch (two-stage), every anchor's
-        decoded box with its best class (anchor head), or the CenterHead's
-        (B, MAX_OBJ_PER_SAMPLE) top-K."""
+        refined boxes scored by its cls branch (two-stage), the RoIs
+        rescored by SECOND-IoU's IoU branch, every anchor's decoded box with
+        its best class (anchor head), or the CenterHead's (B,
+        MAX_OBJ_PER_SAMPLE) top-K."""
         if self.roi_box_coder is not None and "rcnn_reg" in out:
             rcnn_cls, boxes = generate_predicted_boxes_roi(
                 out["rois"], out["rcnn_cls"], out["rcnn_reg"], self.roi_box_coder)
             return boxes, torch.sigmoid(rcnn_cls[..., 0]) * out["roi_mask"], out["roi_labels"]
+        if "roi_ious" in out:
+            return out["rois"], self._rescore(out), out["roi_labels"]
         if self.dense_head_name == "AnchorHeadSingle":
             return self._anchor_decode(out)
         max_obj = int(self.post_cfg.get("MAX_OBJ_PER_SAMPLE", 128))
         return self.module.dense_head.generate_predicted_boxes(out, max_obj=max_obj)
+
+    def _rescore(self, out):
+        """SECOND-IoU's final RoI scores (SCORE_TYPE, IOU_WEIGHT); the
+        num_pts_iou_cls type counts each RoI's valid points."""
+        score_type = self.post_cfg.get("SCORE_TYPE", "weighted_iou_cls")
+        num_pts = None
+        if score_type == "num_pts_iou_cls":
+            num_pts = count_points_in_boxes(out["points"], out["points_mask"], out["rois"])
+        return rescore_detections(out["roi_scores"], out["roi_ious"], num_pts=num_pts,
+                                  score_type=score_type,
+                                  iou_weight=float(self.post_cfg.get("IOU_WEIGHT", 0.68)))
 
     def _anchor_decode(self, out):
         """Every anchor's decoded box, its best class score and label."""

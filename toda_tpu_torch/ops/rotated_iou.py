@@ -5,7 +5,8 @@ convex quads is the sum, over the sub-segments of each quad's edges inside the
 other, of 1/2 * cross(u, v) for a sub-segment u -> v. Each sub-segment is a
 Liang-Barsky clip against four half-planes: all elementwise, no sort, no
 gather. A's edges clip inclusively and B's exclusively, so a shared boundary
-counts once. Every function broadcasts over leading batch dims.
+counts once. ``boxes_iou3d`` multiplies the BEV overlap by the z overlap.
+Every function broadcasts over leading batch dims.
 """
 
 import torch
@@ -89,3 +90,19 @@ def boxes_iou_bev(boxes_a, boxes_b):
     area_a = (boxes_a[..., 3] * boxes_a[..., 4])[..., :, None]
     area_b = (boxes_b[..., 3] * boxes_b[..., 4])[..., None, :]
     return inter / torch.clamp(area_a + area_b - inter, min=_EPS)
+
+
+def boxes_iou3d(boxes_a, boxes_b):
+    """(..., N, 7) x (..., M, 7) -> (..., N, M) 3D IoU: the rotated BEV
+    overlap times the z overlap, over the volumes (JAX :152-167)."""
+    inter_bev = boxes_overlap_bev(boxes_a, boxes_b)
+    za1 = boxes_a[..., 2] - boxes_a[..., 5] / 2
+    za2 = boxes_a[..., 2] + boxes_a[..., 5] / 2
+    zb1 = boxes_b[..., 2] - boxes_b[..., 5] / 2
+    zb2 = boxes_b[..., 2] + boxes_b[..., 5] / 2
+    overlap_z = torch.clamp(torch.minimum(za2[..., :, None], zb2[..., None, :])
+                            - torch.maximum(za1[..., :, None], zb1[..., None, :]), min=0)
+    inter = inter_bev * overlap_z
+    vol_a = (boxes_a[..., 3] * boxes_a[..., 4] * boxes_a[..., 5])[..., :, None]
+    vol_b = (boxes_b[..., 3] * boxes_b[..., 4] * boxes_b[..., 5])[..., None, :]
+    return inter / torch.clamp(vol_a + vol_b - inter, min=_EPS)

@@ -77,8 +77,11 @@ def _recall_rates(recall, thresh_list, has_rois):
     return out
 
 
-def eval_one_epoch(bundle, loader, dataset, class_names, logger=None, predict_step=None):
+def eval_one_epoch(bundle, loader, dataset, class_names, logger=None, predict_step=None,
+                   output_path=None):
     """Predict every batch of ``loader``, then recall and the dataset metric.
+    With ``output_path`` the dataset also writes its per-frame label files
+    there (KITTI's ``generate_prediction_dicts``).
 
     Returns (result_dict, det_annos). result_dict carries the dataset's
     metrics, ``recall/<t>`` (and ``recall/roi_<t>`` when the detections
@@ -124,7 +127,9 @@ def eval_one_epoch(bundle, loader, dataset, class_names, logger=None, predict_st
                                    roi_mask=dets["roi_mask"][i] if "rois" in dets else None)
                 for k in r:
                     recall[k] += r[k]
-        det_annos.extend(dataset.generate_prediction_dicts(batch, pred_dicts, class_names))
+        extra = {} if output_path is None else {"output_path": output_path}
+        det_annos.extend(dataset.generate_prediction_dicts(batch, pred_dicts, class_names,
+                                                           **extra))
     if steady_frames > 0:
         sec_per_ex = (time.time() - steady_t0) / steady_frames
     else:

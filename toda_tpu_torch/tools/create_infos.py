@@ -1,9 +1,15 @@
 """Dataset info and gt-database generation:
-``python -m toda_tpu_torch.tools.create_infos nuscenes|waymo|consolidate ...``.
+``python -m toda_tpu_torch.tools.create_infos kitti|nuscenes|waymo|consolidate ...``.
 
 Counterpart of ``tools/create_infos.py``, with the same flags, for the
 datasets the port reads:
 
+  * ``kitti``: ``kitti_infos_{train,val}.pkl`` from the raw tree under
+    ``--data_path`` (training/{velodyne,calib,label_2},
+    ImageSets/{train,val}.txt); with ``--with_gt_db`` the train split's gt
+    database ``kitti_dbinfos_train.pkl`` of the ``--classes`` (KITTI's
+    names: Car, Pedestrian, Cyclist), one box-relative ``.bin`` per object
+    under ``gt_database/``;
   * ``nuscenes``: ``nuscenes_infos_<N>sweeps_{train,val}.pkl`` from the raw
     JSON tables and sweep files of ``--data_path/<version>``; with
     ``--with_gt_db`` the train split's gt database
@@ -16,9 +22,11 @@ datasets the port reads:
   * ``consolidate``: a per-object gt database packed into one ``.npy`` and
     offset-carrying infos, for the sampler's ``USE_SHARED_MEMORY`` path.
 
-``kitti``, ``lyft`` and ``pandaset`` are not ported yet and exit non-zero.
+``lyft`` and ``pandaset`` are not ported yet and exit non-zero.
 
 Examples:
+  python -m toda_tpu_torch.tools.create_infos kitti --data_path data/kitti --with_gt_db \\
+      --classes Car,Pedestrian,Cyclist
   python -m toda_tpu_torch.tools.create_infos nuscenes --data_path data/nuscenes \\
       --version v1.0-trainval --with_gt_db --classes car
   python -m toda_tpu_torch.tools.create_infos waymo --data_path data/waymo/raw \\
@@ -32,14 +40,15 @@ from pathlib import Path
 from ..config import EDict
 from ..utils import common_utils
 
-NOT_PORTED = ("kitti", "lyft", "pandaset")
+NOT_PORTED = ("lyft", "pandaset")
 
 
 def _db_cfg(info_name, used, extra=None):
-    """A test-mode dataset config over one info pickle, without processors,
-    augmentation, shifts or filters: the frames as they lie on disk."""
+    """A test-mode dataset config over one info pickle (None: none),
+    without processors, augmentation, shifts or filters: the frames as they
+    lie on disk."""
     return EDict({
-        "INFO_PATH": {"train": [], "test": [info_name]},
+        "INFO_PATH": {"train": [], "test": [info_name] if info_name else []},
         "POINT_CLOUD_RANGE": [-75.2, -75.2, -5.0, 75.2, 75.2, 4.0],
         "POINT_FEATURE_ENCODING": {
             "encoding_type": "absolute_coordinates_encoding",
@@ -47,6 +56,29 @@ def _db_cfg(info_name, used, extra=None):
         },
         "DATA_PROCESSOR": [], **(extra or {}),
     })
+
+
+def _kitti(args, logger):
+    from ..datasets.kitti.kitti_dataset import KittiDataset
+
+    save = Path(args.save_path or args.data_path)
+    for split, fname in (("train", "kitti_infos_train.pkl"), ("val", "kitti_infos_val.pkl")):
+        cfg = _db_cfg(None, ["x", "y", "z", "intensity"], {
+            "DATA_PATH": args.data_path, "DATA_SPLIT": {"train": split, "test": split}})
+        ds = KittiDataset(cfg, None, training=False, root_path=args.data_path, logger=logger)
+        try:
+            infos = ds.get_infos()
+        except FileNotFoundError as e:
+            logger.warning("split %s skipped (%s)", split, e)
+            continue
+        with open(save / fname, "wb") as f:
+            pickle.dump(infos, f)
+        logger.info("%s: %d infos -> %s", split, len(infos), save / fname)
+        if split == "train" and args.with_gt_db:
+            ds.infos = infos
+            db = ds.create_groundtruth_database(used_classes=args.classes.split(","),
+                                                out_path=save / "kitti_dbinfos_train.pkl")
+            logger.info("gt database: %s", {k: len(v) for k, v in db.items()})
 
 
 def _nuscenes(args, logger):
@@ -105,7 +137,8 @@ def _consolidate(args, logger):
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
-    parser.add_argument("dataset", choices=["nuscenes", "waymo", "consolidate", *NOT_PORTED])
+    parser.add_argument("dataset",
+                        choices=["kitti", "nuscenes", "waymo", "consolidate", *NOT_PORTED])
     parser.add_argument("--data_path", required=True,
                         help="raw dataset root (waymo: dir of .tfrecord files)")
     parser.add_argument("--save_path", default=None,
@@ -132,8 +165,8 @@ def main(argv=None):
     if args.dataset in NOT_PORTED:
         raise SystemExit(f"create_infos {args.dataset}: not ported to the PyTorch package yet")
     logger = common_utils.create_logger()
-    {"nuscenes": _nuscenes, "waymo": _waymo, "consolidate": _consolidate}[args.dataset](
-        args, logger)
+    {"kitti": _kitti, "nuscenes": _nuscenes, "waymo": _waymo,
+     "consolidate": _consolidate}[args.dataset](args, logger)
 
 
 if __name__ == "__main__":

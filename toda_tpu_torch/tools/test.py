@@ -4,7 +4,9 @@ Counterpart of ``tools/test.py``: ``--ckpt`` evaluates one checkpoint;
 ``--eval_all`` watches a checkpoint directory and evaluates each new
 checkpoint (recorded in ``eval_list_<tag>.txt``, so a restarted watcher
 skips what it did) until none has come for ``--max_waiting_mins``. Each
-evaluation writes its detections to ``eval/[<eval_tag>/]epoch_<n>/result.pkl``.
+evaluation writes its detections to ``eval/[<eval_tag>/]epoch_<n>/result.pkl``,
+and with ``--save_to_file`` a dataset that writes label files (KITTI) puts
+one per frame under ``epoch_<n>/final_result/data``.
 With ``--launcher`` the frames are split over the processes and the results
 merged (``eval_one_epoch``).
 """
@@ -41,13 +43,9 @@ def parse_config(argv=None):
     parser.add_argument("--start_epoch", type=int, default=0,
                         help="--eval_all skips checkpoints before this epoch")
     parser.add_argument("--save_to_file", action="store_true",
-                        help="per-frame KITTI label files: needs the KITTI adapter, which "
-                             "the port does not have yet")
+                        help="also write per-frame KITTI label files")
     add_launcher_args(parser)
     args = parser.parse_args(argv)
-    if args.save_to_file:
-        raise NotImplementedError("--save_to_file writes KITTI label files; the KITTI "
-                                  "adapter is not ported yet")
     return args, load_cfg(args.cfg_file, args.set_cfgs)
 
 
@@ -57,15 +55,18 @@ def ckpt_epoch(path):
     return int(tail) if tail.isdigit() else 0
 
 
-def eval_ckpt(cfg, bundle, ckpt_path, loader, dataset, logger, result_root, predict_step=None):
+def eval_ckpt(cfg, bundle, ckpt_path, loader, dataset, logger, result_root, predict_step=None,
+              save_to_file=False):
     """Load ``ckpt_path``'s weights into ``bundle`` and evaluate; the
-    detections go to ``<result_root>/epoch_<n>/result.pkl``. Returns
-    (result_dict, epoch)."""
+    detections go to ``<result_root>/epoch_<n>/result.pkl`` (with
+    ``save_to_file`` also label files under ``final_result/data``).
+    Returns (result_dict, epoch)."""
     epoch = ckpt_lib.load_checkpoint(ckpt_path, bundle)
+    result_dir = Path(result_root) / f"epoch_{epoch}"
+    output_path = result_dir / "final_result" / "data" if save_to_file else None
     result, det_annos = eval_one_epoch(bundle, loader, dataset, cfg.CLASS_NAMES, logger=logger,
-                                       predict_step=predict_step)
+                                       predict_step=predict_step, output_path=output_path)
     if commu_utils.get_rank() == 0:
-        result_dir = Path(result_root) / f"epoch_{epoch}"
         result_dir.mkdir(parents=True, exist_ok=True)
         with open(result_dir / "result.pkl", "wb") as f:
             pickle.dump(det_annos, f)
@@ -90,7 +91,7 @@ def repeat_eval_ckpt(cfg, bundle, args, ckpt_dir, loader, dataset, logger, resul
             continue
         for c in ckpts:
             result, epoch = eval_ckpt(cfg, bundle, c, loader, dataset, logger, result_root,
-                                      predict_step)
+                                      predict_step, args.save_to_file)
             logger.info("ckpt %s: %s", c.name, result)
             results[epoch] = result
             evaluated.add(str(c))
@@ -122,7 +123,8 @@ def main(argv=None):
                                 dataset, logger, result_root)
     if args.ckpt is None:
         raise ValueError("--ckpt is needed unless --eval_all")
-    result, _ = eval_ckpt(cfg, bundle, args.ckpt, loader, dataset, logger, result_root)
+    result, _ = eval_ckpt(cfg, bundle, args.ckpt, loader, dataset, logger, result_root,
+                          save_to_file=args.save_to_file)
     logger.info("final result: %s", result)
     return result
 

@@ -2,9 +2,11 @@
 
 The port's own copy of the parts of ``toda_tpu/utils/box_utils.py`` that the
 synthetic scenes, the training data path, the TODA mixers, recall and mAP
-use. Box convention:
+use, and the KITTI camera-format conversions (:211-260). Box convention:
 ``(x, y, z, dx, dy, dz, heading[, ...])``, (x, y, z) the box centre, heading
-the yaw around +z (counter-clockwise, 0 = +x axis).
+the yaw around +z (counter-clockwise, 0 = +x axis). A KITTI camera box is
+``(x, y_bottom, z, l, h, w, ry)`` in the rectified camera frame (y down, ry
+about +y).
 """
 
 import numpy as np
@@ -154,3 +156,51 @@ def boxes3d_nearest_bev_iou(boxes_a, boxes_b):
     area_a = (a[..., 2] - a[..., 0]) * (a[..., 3] - a[..., 1])
     area_b = (b[..., 2] - b[..., 0]) * (b[..., 3] - b[..., 1])
     return inter / np.clip(area_a + area_b - inter, 1e-6, None)
+
+
+def boxes3d_lidar_to_kitti_camera(boxes3d_lidar, calib):
+    """(N, 7) lidar boxes -> (N, 7) KITTI camera boxes [x, y, z, l, h, w, ry]."""
+    boxes = np.asarray(boxes3d_lidar, dtype=np.float32).reshape(-1, 7)
+    xyz = boxes[:, 0:3].copy()
+    l, w, h = boxes[:, 3:4], boxes[:, 4:5], boxes[:, 5:6]
+    xyz[:, 2] -= h[:, 0] / 2  # the box centre -> its bottom centre
+    xyz_cam = calib.lidar_to_rect(xyz)
+    ry = -boxes[:, 6:7] - np.pi / 2
+    return np.concatenate([xyz_cam, l, h, w, ry], axis=1)
+
+
+def boxes3d_kitti_camera_to_lidar(boxes3d_camera, calib):
+    """(N, 7) KITTI camera boxes -> (N, 7) lidar boxes (centre z)."""
+    boxes = np.asarray(boxes3d_camera, dtype=np.float32).reshape(-1, 7)
+    xyz = calib.rect_to_lidar(boxes[:, 0:3])
+    l, h, w = boxes[:, 3:4], boxes[:, 4:5], boxes[:, 5:6]
+    xyz[:, 2] += h[:, 0] / 2
+    heading = -(boxes[:, 6:7] + np.pi / 2)
+    return np.concatenate([xyz, l, w, h, heading], axis=1)
+
+
+def boxes3d_to_corners3d_kitti_camera(boxes3d):
+    """(N, 7) KITTI camera boxes -> (N, 8, 3) rectified-frame corners (the
+    box stands on its y_bottom plane and rises by h, y pointing down)."""
+    boxes = np.asarray(boxes3d, dtype=np.float32).reshape(-1, 7)
+    l, h, w = boxes[:, 3], boxes[:, 4], boxes[:, 5]
+    xs = np.stack([l, l, -l, -l, l, l, -l, -l], axis=1) / 2
+    zs = np.stack([w, -w, -w, w, w, -w, -w, w], axis=1) / 2
+    ys = np.stack([np.zeros_like(h)] * 4 + [-h] * 4, axis=1)
+    cos, sin = np.cos(boxes[:, 6])[:, None], np.sin(boxes[:, 6])[:, None]
+    corners = np.stack([cos * xs + sin * zs, ys, -sin * xs + cos * zs], axis=2)
+    return corners + boxes[:, None, 0:3]
+
+
+def boxes3d_kitti_camera_to_imageboxes(boxes3d_camera, calib, image_shape=None):
+    """(N, 7) KITTI camera boxes -> (N, 4) [x1, y1, x2, y2] image boxes: the
+    corners through ``calib.rect_to_img`` (divided by the rectified z),
+    clipped to ``image_shape`` (H, W) when given."""
+    corners = boxes3d_to_corners3d_kitti_camera(boxes3d_camera)
+    pts_img, _ = calib.rect_to_img(corners.reshape(-1, 3))
+    xy = pts_img.reshape(-1, 8, 2)
+    boxes2d = np.concatenate([xy.min(axis=1), xy.max(axis=1)], axis=1)
+    if image_shape is not None:
+        boxes2d[:, [0, 2]] = np.clip(boxes2d[:, [0, 2]], 0, image_shape[1] - 1)
+        boxes2d[:, [1, 3]] = np.clip(boxes2d[:, [1, 3]], 0, image_shape[0] - 1)
+    return boxes2d
