@@ -89,6 +89,20 @@ Phases (none catches its own failure; any failure exits non-zero):
      4 scans: outputs finite, RoI recall reported, launches per forward
      asserted (K9 63, K6 27, K4 1, K5 1); then the steady predict
      throughput, peak memory and a torch.profiler window of two steps;
+     Then PartA2's f32 convolutions under cuDNN TF32 at full width: one
+     forward with TF32 off and one with it on, the dense head maps and the
+     RoI head (on the same RoIs) compared, max relative differences logged
+     beside the tiny check's 5e-3 (``phase_parta2_tf32``);
+ 15b. tiny PV-RCNN in f32 (``pvrcnn_synthetic.yaml``) on cuda and on cpu
+     with the same weights and batch: FPS keypoints equal, keypoint and head
+     outputs and the RoI head on the cpu's RoIs to 1e-3; then PV-RCNN at full
+     width (``pvrcnn_cfg``: waymo_models/pv_rcnn.yaml on the synthetic
+     scenes): one forward records the FPS call and the 8 ball-query calls,
+     each held against its plain version (indices and counts equal) and
+     timed; with every counter at 0, ``eval_one_epoch`` over 3 batches of 4
+     scans (K1 11, K4 2, K5 1, FPS 1, BQ 8 launches per forward), the steady
+     predict throughput, peak memory and a profile with kernel time by
+     ``stage:`` range;
  16. tiny SECOND in f32 (``second_tiny``, ``FUSED_CONV: False``): three
      train steps on cuda and on cpu from the same weights and batch; on
      the card the fused contract (K1-K3) on the same weights and batch:
@@ -131,6 +145,7 @@ REPO = Path(__file__).resolve().parent
 BATCH = 4
 N_BATCHES = 5
 PARTA2_BATCHES = 3
+PVRCNN_BATCHES = 3
 SECOND_BATCHES = 3
 SECOND_TRAIN_STEPS = 5
 SEED = 0
@@ -223,6 +238,31 @@ def parta2_cfg():
     d.NUM_OBJECTS = [20, 40]
     d.MAX_GT_BOXES = 64
     d.NUM_SCENES = BATCH * PARTA2_BATCHES
+    return cfg
+
+
+def pvrcnn_cfg():
+    """PV-RCNN at full width: ``MODEL`` and ``CLASS_NAMES`` of
+    tools/cfgs/waymo_models/pv_rcnn.yaml (over waymo_models/second.yaml:
+    PillarBackBone8x CHANNELS [16, 32, 64, 64], MAX_PILLARS 65536 (stage caps
+    65536 / 32768 / 16384 / 8192), BF16, the fused contract; the BEV backbone
+    and the anchor head of SECOND; VoxelSetAbstraction with 4096 FPS
+    keypoints, 128 output features, sources bev, x_conv3, x_conv4 and
+    raw_points with their MLPS, radii and NSAMPLE; PointHeadSimple CLS_FC
+    [256, 256]; PVRCNNHead with a 6^3 grid, pool radii [0.8, 1.6], NSAMPLE
+    [16, 16], SHARED_FC / CLS_FC / REG_FC [256, 256]; proposal NMS 1024 ->
+    100 at 0.7) and the Waymo data settings of ``parta2_cfg``, on the same
+    synthetic scenes (150k uniform background points, 20-40 objects, at most
+    64 gt boxes a scan)."""
+    from toda_tpu_torch.config import EDict, cfg_from_yaml_file
+
+    cfg = cfg_from_yaml_file(str(REPO / "tools/cfgs/waymo_models/pv_rcnn.yaml"), EDict())
+    d = cfg.DATA_CONFIG
+    d.DATASET = "SyntheticDataset"
+    d.NUM_BACKGROUND_POINTS = 150000
+    d.NUM_OBJECTS = [20, 40]
+    d.MAX_GT_BOXES = 64
+    d.NUM_SCENES = BATCH * PVRCNN_BATCHES
     return cfg
 
 
@@ -1115,9 +1155,9 @@ class Recorder:
 
 def reset_launches():
     """Every kernel wrapper's launch count to 0."""
-    from toda_tpu_torch.ops import fused_conv, gather
+    from toda_tpu_torch.ops import fused_conv, gather, pointnet2_ops
 
-    for counts in (fused_conv.LAUNCHES, gather.LAUNCHES):
+    for counts in (fused_conv.LAUNCHES, gather.LAUNCHES, pointnet2_ops.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -1640,11 +1680,14 @@ def phase_profile(run, what):
                  and e.key not in PROFILER_RANGES and not e.key.startswith("stage:")) / 2e3
     log(f"profile {what}: steady step {step_ms:.1f} ms (host clock, batch {BATCH}); device "
         f"kernel time {dev_ms:.1f} ms per step; busy share {dev_ms / step_ms:.3f}")
-    # a stage range's host-side entry sums the kernel time of what it launched
-    stages = [e for e in ka if e.key.startswith("stage:") and e.device_type == DeviceType.CPU]
-    if stages:
-        log("  kernel time by stage per step: " + ", ".join(
-            f"{e.key[6:]} {e.device_time_total / 2e3:.1f} ms" for e in stages))
+    # a stage range's host-side entry sums the kernel time of the aten ops it
+    # ran, not of the port's own kernels (launched through ctypes); its
+    # device-side entry spans the range's work on the device, gaps included
+    for side, what in ((DeviceType.CPU, "aten kernel time"), (DeviceType.CUDA, "device span")):
+        stages = [e for e in ka if e.key.startswith("stage:") and e.device_type == side]
+        if stages:
+            log(f"  {what} by stage per step: " + ", ".join(
+                f"{e.key[6:]} {e.device_time_total / 2e3:.1f} ms" for e in stages))
     log(ka.table(sort_by="self_device_time_total", row_limit=25, max_name_column_width=60))
 
 
@@ -1849,6 +1892,216 @@ def phase_parta2_main(bundle, cfg, loader, dataset):
     log(f"phase PartA2 predict throughput: {best:.2f} scans/s steady state (batch {BATCH}, "
         f"best of 3 x 10 steps)")
     return launches, best, bundle.to_device(next(iter(loader)))
+
+
+def phase_parta2_tf32(bundle, dev):
+    """PartA2's f32 convolutions (the BEV backbone's and the RoI head's)
+    under cuDNN TF32 at full width: one forward of the batch with TF32 off
+    and one with it on. The dense head maps compare directly; the RoI head
+    runs under TF32 on the TF32-off forward's RoIs and point outputs (the
+    proposal NMS may keep other RoIs). Prints each output's max |diff| over
+    max(1, its largest magnitude), beside the tiny check's 5e-3."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    ref = bundle.forward(dev)
+    torch.backends.cudnn.allow_tf32 = True
+    out = bundle.forward(dev)
+    with torch.inference_mode():
+        rcnn = bundle.module.roi_head({k: ref[k] for k in (
+            "point_features", "point_coords", "point_mask", "point_cls_scores",
+            "point_part_offset", "rois", "roi_mask")})
+    rels = {k: (ref[k] - out[k]).abs().max().item() / max(1.0, ref[k].abs().max().item())
+            for k in ("cls_preds", "box_preds")}
+    rels.update({k: (ref[k] - rcnn[k]).abs().max().item() / max(1.0, ref[k].abs().max().item())
+                 for k in ("rcnn_cls", "rcnn_reg")})
+    same = int((ref["rois"] == out["rois"]).all(-1).sum())
+    log(f"phase PartA2 TF32 at full width (one forward, batch {BATCH}): max rel diff TF32 on vs "
+        f"off " + ", ".join(f"{k} {v:.3g}" for k, v in rels.items())
+        + f" (the tiny check's tolerance 5e-3); {same} of {ref['rois'].shape[0] * ref['rois'].shape[1]}"
+        f" RoI slots identical across the two forwards")
+    return rels
+
+
+PVRCNN_KEYS = ("point_features_before_fusion", "point_features", "point_cls_scores",
+                     "spatial_features_2d", "cls_preds", "box_preds", "dir_cls_preds")
+
+
+def pvrcnn_tiny_cfg():
+    from toda_tpu_torch.config import EDict, cfg_from_yaml_file
+
+    return cfg_from_yaml_file(
+        str(REPO / "tools/cfgs/synthetic_models/pvrcnn_synthetic.yaml"), EDict())
+
+
+def phase_pvrcnn_tiny_parity():
+    """Tiny PV-RCNN (pvrcnn_synthetic.yaml) in f32, TF32 off: cuda vs cpu on
+    the same weights and batch. The FPS keypoints and their mask equal; the
+    keypoint, BEV and anchor head outputs to 1e-3; the RoI head on both
+    devices from the cpu's RoIs and keypoint outputs to 1e-3."""
+    import numpy as np
+    import torch
+
+    from toda_tpu_torch.datasets import build_dataloader
+    from toda_tpu_torch.models import build_network
+    from toda_tpu_torch.weights import randomize_
+
+    cfg = pvrcnn_tiny_cfg()
+    np.random.seed(SEED)
+    ds, loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, batch_size=2)
+    batch = next(iter(loader))
+    cpu = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), ds, device="cpu")
+    randomize_(cpu.module, SEED)
+    gpu = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), ds, device="cuda")
+    gpu.module.load_state_dict(cpu.module.state_dict(), strict=True)
+    out_c = cpu.forward(cpu.to_device(batch))
+    out_g = gpu.forward(gpu.to_device(batch))
+    for k in ("point_coords", "point_mask"):
+        assert torch.equal(out_c[k], out_g[k].cpu()), f"tiny PV-RCNN cuda/cpu {k} differ"
+    with torch.inference_mode():
+        rcnn_g = gpu.module.roi_head({k: out_c[k].cuda() for k in (
+            "point_features", "point_coords", "point_mask", "point_cls_scores", "rois",
+            "roi_mask")})
+    tol = 1e-3  # f32 on both sides, TF32 off: only summation order differs
+    worst = 0.0
+    pairs = [(k, out_c[k], out_g[k]) for k in PVRCNN_KEYS]
+    pairs += [(k, out_c[k], rcnn_g[k]) for k in ("rcnn_cls", "rcnn_reg")]
+    for name, a, b in pairs:
+        b = b.cpu()
+        err = (a - b).abs().max().item()
+        worst = max(worst, err / max(1.0, a.abs().max().item()))
+        assert torch.allclose(a, b, rtol=tol, atol=tol), f"tiny PV-RCNN cuda/cpu {name}: {err}"
+    log(f"phase PV-RCNN tiny cuda-vs-cpu (f32, TF32 off): FPS keypoints equal; keypoint, BEV "
+        f"and anchor head outputs and the RoI head on the same RoIs agree, max rel err "
+        f"{worst:.3g} (tol {tol})")
+
+
+def fps_bound(points, mask, ns):
+    """(bound_ms, by) of one FPS call: the points and mask read once, the
+    indices written once; 9 f32 operations (3 sub, 3 mul, 2 add, 1 min) a
+    point and step after the first."""
+    b, n, _ = points.shape
+    nbytes = points.numel() * 4 + mask.numel() + b * ns * 4
+    return bound_ms(nbytes, 9 * b * n * (ns - 1), H100_F32_FLOPS)
+
+
+def bq_bound(xyz, xmask, q, qmask, nsample, idx, cnt):
+    """(bound_ms, by) of one ball query: inputs read once, idx and cnt
+    written once; 9 f32 operations (3 sub, 3 mul, 2 add, 1 compare) for each
+    candidate a valid query needs, the points up to its nsample-th neighbour
+    (all N where it has fewer)."""
+    import torch
+
+    scanned = torch.where(cnt >= nsample, idx[..., -1].long() + 1, xyz.shape[1]) * qmask
+    nbytes = (xyz.numel() * 4 + xmask.numel() + q.numel() * 4 + qmask.numel()
+              + idx.numel() * 4 + cnt.numel() * 4)
+    return bound_ms(nbytes, 9 * int(scanned.sum().item()), H100_F32_FLOPS)
+
+
+def check_point_ops(fps_calls, bq_calls):
+    """Hold each recorded FPS and ball-query call against its plain version
+    (indices and counts equal) and time both."""
+    import torch
+
+    from toda_tpu_torch.ops import pointnet2_ops as p2
+
+    rows = {"FPS": [], "BQ": []}
+    for (points, mask, ns), _ in fps_calls:
+        got = p2.farthest_point_sampling(points, mask, ns)
+        assert torch.equal(got, p2.farthest_point_sampling_plain(points, mask, ns)), "FPS differs"
+        rows["FPS"].append(dict(
+            shape=f"points{tuple(points.shape)} -> {ns} samples", err=0.0, tol="0 (exact)",
+            ms=cuda_ms(lambda: p2.farthest_point_sampling(points, mask, ns), 3, warmup=1),
+            plain_ms=cuda_ms(lambda: p2.farthest_point_sampling_plain(points, mask, ns), 1,
+                             warmup=0),
+            library_ms=None, bound=fps_bound(points, mask, ns)))
+    for (radius, ns, xyz, xmask, q, qmask, *_), _ in bq_calls:
+        idx, cnt = p2.ball_query(radius, ns, xyz, xmask, q, qmask)
+        ref = p2.ball_query_plain(radius, ns, xyz, xmask, q, qmask)
+        assert torch.equal(cnt, ref[1]) and torch.equal(idx, ref[0]), \
+            f"BQ r {radius} ns {ns} {tuple(xyz.shape)} differs"
+        rows["BQ"].append(dict(
+            shape=f"r {radius} ns {ns} xyz{tuple(xyz.shape)} queries{tuple(q.shape[:2])}, "
+                  f"mean count {cnt.float().mean().item():.2f}",
+            err=0.0, tol="0 (exact)", ms=cuda_ms(lambda: p2.ball_query(radius, ns, xyz, xmask, q,
+                                                                       qmask), 5),
+            plain_ms=cuda_ms(lambda: p2.ball_query_plain(radius, ns, xyz, xmask, q, qmask), 1,
+                             warmup=0),
+            library_ms=None, bound=bq_bound(xyz, xmask, q, qmask, ns, idx, cnt)))
+    log_rows(rows)
+    return rows
+
+
+def phase_pvrcnn(cfg):
+    """PV-RCNN at full width (``pvrcnn_cfg``, random weights): one forward
+    records the FPS and ball-query calls, each held against its plain
+    version and timed; then, with every counter at 0, ``eval_one_epoch``
+    (per forward: K1 11, K4 2, K5 1, FPS 1, BQ 8: 6 VSA groups and 2 RoI-grid
+    groups), the steady predict rate and a profile with kernel time by
+    stage. Returns the kernels' rows, the launches and scans/s."""
+    import numpy as np
+    import torch
+
+    from toda_tpu_torch.datasets import build_dataloader
+    from toda_tpu_torch.models import build_network
+    from toda_tpu_torch.models.backbones_3d.pfe import voxel_set_abstraction as vsa
+    from toda_tpu_torch.ops import fused_conv, gather, pointnet2_ops
+    from toda_tpu_torch.runtime.eval_utils import eval_one_epoch
+    from toda_tpu_torch.weights import randomize_
+
+    np.random.seed(SEED)
+    dataset, loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, batch_size=BATCH)
+    bundle = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), dataset, device="cuda")
+    randomize_(bundle.module, SEED)
+    first = next(iter(loader))
+    log(f"PV-RCNN full width: grid {dataset.grid_size.tolist()}, {first['points'].shape[1]} "
+        f"points/scan, {int(first['points_mask'].sum(1).min())}-"
+        f"{int(first['points_mask'].sum(1).max())} real, "
+        f"{int((first['gt_boxes'][..., -1] > 0).sum())} gt boxes in the first batch")
+    with Recorder(vsa, "farthest_point_sampling") as fps, \
+            Recorder(pointnet2_ops, "ball_query") as bq:
+        out = bundle.forward(bundle.to_device(first))
+    torch.cuda.synchronize()
+    for k in ("point_features", "point_cls_scores", "rois", "rcnn_cls", "rcnn_reg"):
+        assert torch.isfinite(out[k]).all(), f"full-width PV-RCNN output {k} is not finite"
+    assert len(fps.calls) == 1 and len(bq.calls) == 8, (len(fps.calls), len(bq.calls))
+    log(f"phase PV-RCNN kernels: one forward, {int(out['point_mask'].sum())} keypoints, "
+        f"{int(out['roi_mask'].sum())} RoIs kept; 1 FPS and 8 ball-query calls recorded")
+    del out
+    with torch.no_grad():
+        rows = check_point_ops(fps.calls, bq.calls)
+    del fps, bq
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.time()
+    result, annos = eval_one_epoch(bundle, loader, dataset, cfg.CLASS_NAMES)
+    wall = time.time() - t0
+    ga, pn = gather.LAUNCHES, pointnet2_ops.LAUNCHES
+    launches = {"K1": fused_conv.LAUNCHES["fused_bnconv9"], "K4": ga["scatter_rows_add"],
+                "K5": ga["unpack_pillars"], "FPS": pn["farthest_point_sampling"],
+                "BQ": pn["ball_query"]}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    n_fwd = len(loader)
+    assert n_fwd >= 3, n_fwd
+    assert launches == {"K1": 11 * n_fwd, "K4": 2 * n_fwd, "K5": n_fwd, "FPS": n_fwd,
+                        "BQ": 8 * n_fwd}, launches
+    assert len(annos) == BATCH * n_fwd
+    for a in annos:
+        assert np.isfinite(a["boxes_lidar"]).all() and np.isfinite(a["score"]).all()
+    n_det = sum(len(a["score"]) for a in annos)
+    log(f"phase PV-RCNN main path: eval_one_epoch over {n_fwd} batches of {BATCH} in "
+        f"{wall:.1f}s; launches {launches}; {n_det} detections, all finite; mAP "
+        f"{result['mAP']:.4f}, recall/0.3 {result['recall/0.3']:.4f}, recall/roi_0.3 "
+        f"{result['recall/roi_0.3']:.4f}; eval sec/example {result['sec_per_example']:.4f}; "
+        f"peak device memory {peak_gib:.2f} GiB")
+    best = steady_rate(predict_run(bundle, loader))
+    log(f"phase PV-RCNN predict throughput: {best:.2f} scans/s steady state (batch {BATCH}, "
+        f"best of 3 x 10 steps)")
+    dev = bundle.to_device(first)
+    phase_profile(lambda: float(bundle.predict(dev)["pred_scores"][0, 0]), "PV-RCNN predict")
+    return rows, launches, best
 
 
 SECOND_HEAD_KEYS = ("spatial_features_2d", "cls_preds", "box_preds", "dir_cls_preds")
@@ -2745,7 +2998,12 @@ def phase_kitti(data_root):
     del bundle, state, step, run, predict, batches, samples
     torch.cuda.empty_cache()
 
-    # the track through its CLIs: stage 1 (with its KITTI val eval), then test
+    # the track through its CLIs: stage 1 (with its KITTI val eval), then
+    # test, both evaluating at score 0: eight steps from the init score few
+    # boxes above POST_PROCESSING.SCORE_THRESH 0.1 (in one run none in the
+    # camera's view of the 8 val frames), and the metric computes its bbox
+    # AP and AOS only from detections there
+    cfg.MODEL.POST_PROCESSING.SCORE_THRESH = 0.0
     cli = REPO / "build" / "cli_kitti"
     shutil.rmtree(cli, ignore_errors=True)
     (cli / "cfgs" / "kitti").mkdir(parents=True)
@@ -3241,7 +3499,18 @@ def main():
     phase_profile(lambda: float(pbundle.predict(pdev)["pred_scores"][0, 0]), "PartA2 predict")
     for key in ("K9", "K6", "K4", "K5"):
         launches[key] = launches.get(key, 0) + plaunches[key]
+    phase_parta2_tf32(pbundle, pdev)
     del pbundle, pdev
+    torch.cuda.empty_cache()
+
+    # PV-RCNN inference at the Waymo config's widths (TF32 as for PartA2)
+    torch.backends.cudnn.allow_tf32 = False
+    phase_pvrcnn_tiny_parity()
+    torch.backends.cudnn.allow_tf32 = True
+    vrows, vlaunches, pvrcnn_scans = phase_pvrcnn(pvrcnn_cfg())
+    rows.update(vrows)
+    for key, n in vlaunches.items():
+        launches[key] = launches.get(key, 0) + n
     torch.cuda.empty_cache()
 
     # SECOND: the legacy conv contract (K7, K8), training and inference
@@ -3275,6 +3544,10 @@ def main():
                "toda_tpu/ops/pallas_gather.py:201"),
         "K10": ("gather9_conv_t", "toda_tpu_torch/csrc/gather.cu",
                 "toda_tpu/ops/pallas_gather.py:729"),
+        "FPS": ("farthest_point_sampling", "toda_tpu_torch/csrc/pointnet2.cu",
+                "toda_tpu/ops/pointnet2_ops.py:22"),
+        "BQ": ("ball_query", "toda_tpu_torch/csrc/pointnet2.cu",
+               "toda_tpu/ops/pointnet2_ops.py:48"),
     }
     kernels = []
     for key, (name, source, replaces) in meta.items():
@@ -3296,7 +3569,8 @@ def main():
         f"forward of batch {BATCH}; K2, K3 per train step, K2 also the TODA perturbation's "
         f"raw first-conv dx (one per perturb step); K9 per PartA2 forward; K4, K5 one "
         f"CenterPoint-Res and one PartA2 forward; K6 one train step, one PartA2 forward and "
-        f"the perturbation's K4 VJPs (one per perturb step); K7, K8 one SECOND train step; K10 the seven stride-1 "
+        f"the perturbation's K4 VJPs (one per perturb step); K7, K8 one SECOND train step; "
+        f"FPS and BQ one PV-RCNN forward (1 and 8 calls); K10 the seven stride-1 "
         f"convs of one SECOND forward, which no path runs through it. Launches are summed "
         f"over the counted runs: eval_one_epoch of each model, {TRAIN_STEPS} CenterPoint-Res "
         f"and {SECOND_TRAIN_STEPS} SECOND train steps, the TODA stages (stage-1 train_model, "
@@ -3305,6 +3579,7 @@ def main():
         f"stage-1 and test CLIs, K10's checks. "
         f"{scans_per_s:.2f} CenterPoint-Res predict scans/s, {train_scans:.2f} train scans/s, "
         f"train peak memory {train_peak:.2f} GiB, {parta2_scans:.2f} PartA2 predict scans/s, "
+        f"{pvrcnn_scans:.2f} PV-RCNN predict scans/s, "
         f"{second_scans:.2f} SECOND predict scans/s, {second_train:.2f} SECOND train scans/s, "
         f"SECOND train peak memory {second_peak:.2f} GiB; TODA: "
         f"{toda['stage1_train_scans_per_s']:.2f} stage-1 train scans/s, "

@@ -9,6 +9,8 @@ to 1e-3, the decoded top-K boxes and scores to 1e-3, and the post-NMS kept
 sets are equal. ``test_torch_model_bf16.py`` holds a bf16 run to a loose bound.
 """
 
+from functools import partial
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,6 +32,23 @@ from toda_tpu_torch.weights import state_dict_from_flax
 torch.set_num_threads(1)
 
 CFG = "tools/cfgs/synthetic_models/centerpoint_synthetic.yaml"
+# XLA's CPU backend at -O0 for the JAX reference programs whose results are
+# held at a tolerance far above f32 rounding: the same programs, compiled in
+# about a third of the time, rounded at other places (within f32 ulps)
+XLA_O0 = {"xla_backend_optimization_level": 0}
+# one -O0 program for a test's whole JAX reference computation: called
+# eagerly, JAX compiles each primitive on its own (a hundred compiles a test)
+jit_o0 = partial(jax.jit, compiler_options=XLA_O0)
+
+
+def vjp_o0(fn, primals, cotangent):
+    """fn(*primals) and the cotangents of ``jax.vjp`` of fn applied to
+    cotangent, as one -O0 program."""
+    def run(p, c):
+        out, vjp = jax.vjp(fn, *p)
+        return out, vjp(c)
+
+    return jit_o0(run)(tuple(primals), cotangent)
 
 
 def tiny(cfg, bf16):
@@ -89,7 +108,7 @@ def run_both(bf16, decode=True):
         {"params": key, "sampling": key, "dropout": key}, b, training=False), arrays)
     tree = random_tree(dict(shapes), np.random.RandomState(1))
 
-    @jax.jit
+    @jit_o0
     def jrun(variables, b):
         out = jb.module.apply(variables, b, training=False)
         head = (out["spatial_features_2d"], out["center_pred_dicts"][0])

@@ -7,11 +7,11 @@ Pallas kernels in interpret mode, and the rotated IoU / NMS. Layout helpers
 convert between JAX's transposed (nz*C, M) and the port's (M, nz, C).
 """
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_model import jit_o0
 
 from toda_tpu.ops import nms as jnms
 from toda_tpu.ops import pallas_fused_conv as pfc
@@ -57,7 +57,7 @@ def test_voxelizer_and_tables_match_jax():
     max_pillars = 256
     pts, mask = _scan(np.random.RandomState(0))
     v = VOX
-    ref = jax.jit(lambda p_, m_: jps.voxelize_pillars_batched(
+    ref = jit_o0(lambda p_, m_: jps.voxelize_pillars_batched(
         p_, m_, v["voxel_size"], v["pc_range"], v["grid_size"], max_pillars, v["nz"]))(
         jnp.asarray(pts), jnp.asarray(mask))
     got = pillar_sparse.voxelize_pillars_batched(
@@ -100,8 +100,8 @@ def test_pillars_to_dense_matches_jax():
     coords[:, :50, 0], coords[:, :50, 1] = keys // 10, keys % 10
     mask = coords[..., 0] >= 0
     feats = rng.randn(bt, p, nz, c).astype(np.float32)
-    ref = jps.pillars_to_dense_batched(jnp.asarray(feats), jnp.asarray(coords),
-                                       jnp.asarray(mask), bev)
+    ref = jit_o0(lambda *a: jps.pillars_to_dense_batched(*a, bev))(
+        jnp.asarray(feats), jnp.asarray(coords), jnp.asarray(mask))
     got = pillar_sparse.pillars_to_dense_batched(t(feats), t(coords), t(mask), bev)
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
 
@@ -143,7 +143,8 @@ def test_scatter_rows_add_matches_pallas_interpret(monkeypatch):
     c, tgt_win, overflow = pg._scatter_prologue(jnp.asarray(idx), n, idx.size)
     assert not bool(overflow)
     monkeypatch.setattr(pg, "INTERPRET", True)
-    ref = pg._pallas_scatter(jnp.asarray(g), tgt_win, c, n, out_dtype=jnp.float32)
+    ref = jit_o0(lambda *a: pg._pallas_scatter(*a, n, out_dtype=jnp.float32))(
+        jnp.asarray(g), tgt_win, c)
     got = gather.scatter_rows_add(t(g), t(idx), n)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
 
@@ -167,9 +168,9 @@ def test_unpack_pillars_matches_jax(monkeypatch):
     for g in range(8):
         for k in range(c + 1):
             raw[:, :, g * 16 + 2 * k] = cells[:, :, g, k]
-    want = pg.unpack_pillars_t_ref(jnp.asarray(raw), nz, c, cpad, p)
+    want = jit_o0(lambda r: pg.unpack_pillars_t_ref(r, nz, c, cpad, p))(jnp.asarray(raw))
     monkeypatch.setattr(pg, "INTERPRET_FORCED", True)
-    kern = pg._unpack_impl(jnp.asarray(raw), nz, c, cpad, p)
+    kern = jit_o0(lambda r: pg._unpack_impl(r, nz, c, cpad, p))(jnp.asarray(raw))
     got = gather.unpack_pillars(t(sums), c, cpad, torch.bfloat16).float().numpy()
     got = got.reshape(bt * p, nz, cpad)
     for ref in (want, kern):
@@ -224,8 +225,8 @@ CASES = [("subm", True), ("subm", False), ("down", True), ("down", False)]
 def test_fused_bnconv9_matches_ref_fwd_f32(kind, act):
     """K1 plain vs _ref_fwd in f32 (1e-4) on every output row."""
     k = _conv_case(kind, act, seed=0)
-    ref = pfc._ref_fwd(jnp.asarray(k["x"]), jnp.asarray(k["scale"]), jnp.asarray(k["shift"]),
-                       jnp.asarray(k["w"]), jnp.asarray(k["idx"]), k["nz"], k["stride"], act)
+    ref = jit_o0(lambda *a: pfc._ref_fwd(*a, k["nz"], k["stride"], act))(
+        *(jnp.asarray(k[n]) for n in ("x", "scale", "shift", "w", "idx")))
     got = fused_conv.fused_bnconv9(t(to_port(k["x"], k["nz"])), t(k["scale"]), t(k["shift"]),
                                    t(k["w"]), t(k["idx"]), k["stride"], act)
     np.testing.assert_allclose(got.numpy(), to_port(ref, got.shape[1]), rtol=1e-4, atol=1e-4)
@@ -244,8 +245,9 @@ def test_fused_bnconv9_matches_pallas_interpret_bf16(monkeypatch, kind, act):
     hb = jnp.asarray(k["shift"]).astype(jnp.bfloat16)
     c, cout = k["w"].shape[-2], k["w"].shape[-1]
     assert pfc.fused_ok(xb.shape, xb.dtype, c, cout, k["idx"].shape[0], k["nz"], k["stride"])
-    ref = pfc.fused_bnconv9_t(xb, sb, hb, wb, jnp.asarray(k["idx"]), None, k["nz"],
-                              k["stride"], 4 if kind == "subm" else None, act)
+    ref = jit_o0(lambda *a: pfc.fused_bnconv9_t(*a, None, k["nz"], k["stride"],
+                                                4 if kind == "subm" else None, act))(
+        xb, sb, hb, wb, jnp.asarray(k["idx"]))
     got = fused_conv.fused_bnconv9(
         t(to_port(np.asarray(xb.astype(jnp.float32)), k["nz"])).bfloat16(),
         t(np.asarray(sb.astype(jnp.float32))), t(np.asarray(hb.astype(jnp.float32))),

@@ -13,7 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from test_torch_model import random_tree
+from test_torch_model import jit_o0, random_tree
 
 from toda_tpu.config import EDict as JEDict
 from toda_tpu.config import cfg_from_yaml_file as j_cfg_from_yaml_file
@@ -52,7 +52,7 @@ def runs():
         {"params": key, "sampling": key, "dropout": key}, b, training=False), arrays)
     tree = random_tree(dict(shapes), np.random.RandomState(1))
 
-    @jax.jit
+    @jit_o0
     def jrun(variables, b):
         out = jb.module.apply(variables, b, training=False)
         return {k: out[k] for k in POINT_KEYS + HEAD_KEYS + ROI_KEYS}, jb.post_processing(out)

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_model import jit_o0
 
 from toda_tpu.models.dense_heads import anchor_head_single as j_anchor_head
 from toda_tpu.models.dense_heads.target_assigner.anchor_generator import \
@@ -74,7 +75,7 @@ def test_gather_rows_taps_matches_pallas_interpret_and_fallback(monkeypatch, nta
     lo, li, overflow = pg._taps_prologue(jnp.asarray(idx), tj.shape[0])
     assert not bool(overflow)
     monkeypatch.setattr(pg, "INTERPRET", True)
-    kernel = pg._pallas_gather_taps(tj, lo, li, idx.shape[0], ntap)
+    kernel = jit_o0(lambda *a: pg._pallas_gather_taps(*a, idx.shape[0], ntap))(tj, lo, li)
     for k in range(ntap):
         np.testing.assert_array_equal(got[k], np.asarray(fallback[k].astype(jnp.float32)))
         np.testing.assert_array_equal(got[k], np.asarray(kernel[k].astype(jnp.float32)))
@@ -133,8 +134,8 @@ def test_pillar_conv3d_matches_jax_f32(sites, kind):
     w = rng.randn(3, 3, 3, c, cout).astype(np.float32)
     stride, tap, out_mask = (1, 4, t(sites["mask"])) if kind == "subm" else (2, None, sites["om"])
     nbr = sites[kind]
-    ref = np.asarray(jps.pillar_conv3d(jnp.asarray(x), jnp.asarray(nbr.numpy()), jnp.asarray(w),
-                                       jnp.asarray(out_mask.numpy()), stride, tap))
+    ref = np.asarray(jit_o0(lambda *a: jps.pillar_conv3d(*a, stride, tap))(
+        jnp.asarray(x), jnp.asarray(nbr.numpy()), jnp.asarray(w), jnp.asarray(out_mask.numpy())))
     got = pillar_sparse.pillar_conv3d(t(x).reshape(bt * p, nz, c),
                                       pillar_sparse.fold_idx(nbr, p), t(w),
                                       out_mask.reshape(-1), stride, tap)
@@ -147,8 +148,8 @@ def test_pillar_inv_conv3d_matches_jax_f32(sites):
     bt, pc, nzc, nzf, c, cout = 2, 100, 3, 5, 4, 6
     x = rng.randn(bt, pc, nzc, c).astype(np.float32)
     w = rng.randn(3, 3, 3, c, cout).astype(np.float32)
-    ref = np.asarray(jps.pillar_inv_conv3d(jnp.asarray(x), sites["jinv"], jnp.asarray(w),
-                                           jnp.asarray(sites["mask"]), nzf))
+    ref = np.asarray(jit_o0(lambda *a: jps.pillar_inv_conv3d(*a, nzf))(
+        jnp.asarray(x), sites["jinv"], jnp.asarray(w), jnp.asarray(sites["mask"])))
     got = pillar_sparse.pillar_inv_conv3d(t(x).reshape(bt * pc, nzc, c),
                                           pillar_sparse.fold_idx(sites["inv"], pc), t(w),
                                           t(sites["mask"]).reshape(-1), nzf)
@@ -218,8 +219,9 @@ def test_box_decode_and_predicted_boxes_match_jax():
         ResidualCoder().decode(t(out["box_preds"]), t(anchors)[None]).numpy(),
         np.asarray(JResidualCoder().decode(jnp.asarray(out["box_preds"]),
                                            jnp.asarray(anchors)[None])), rtol=1e-5, atol=1e-5)
-    jcls, jboxes = j_anchor_head.generate_predicted_boxes(
-        {k: jnp.asarray(v) for k, v in out.items()}, jnp.asarray(anchors), cfg, JResidualCoder())
+    jcls, jboxes = jit_o0(lambda o, a: j_anchor_head.generate_predicted_boxes(
+        o, a, cfg, JResidualCoder()))({k: jnp.asarray(v) for k, v in out.items()},
+                                      jnp.asarray(anchors))
     cls, boxes = anchor_head_single.generate_predicted_boxes(
         {k: t(v) for k, v in out.items()}, t(anchors), cfg, ResidualCoder())
     np.testing.assert_array_equal(cls.numpy(), np.asarray(jcls))
@@ -232,7 +234,8 @@ def test_proposal_layer_matches_jax():
     boxes = np.asarray(JResidualCoder().decode(jnp.asarray(out["box_preds"]),
                                                jnp.asarray(anchors)[None]))
     nms_cfg = _cfg().MODEL.ROI_HEAD.NMS_CONFIG.TEST
-    jr = j_roi_utils.proposal_layer(jnp.asarray(boxes), jnp.asarray(out["cls_preds"]), nms_cfg)
+    jr = jit_o0(lambda b_, c_: j_roi_utils.proposal_layer(b_, c_, nms_cfg))(
+        jnp.asarray(boxes), jnp.asarray(out["cls_preds"]))
     pr = roi_utils.proposal_layer(t(boxes), t(out["cls_preds"]), nms_cfg)
     for b in range(boxes.shape[0]):
         jm, pm = np.asarray(jr[3][b]), pr[3][b].numpy()
@@ -251,8 +254,8 @@ def test_roi_box_decode_and_roi_recall_match_jax():
                            rng.uniform(-3, 3, (2, 30, 1))], -1).astype(np.float32)
     rcnn_cls = rng.randn(2, 30, 1).astype(np.float32)
     rcnn_reg = rng.normal(0, 0.2, (2, 30, 7)).astype(np.float32)
-    _, jboxes = j_roi_utils.generate_predicted_boxes_roi(
-        jnp.asarray(rois), jnp.asarray(rcnn_cls), jnp.asarray(rcnn_reg), JResidualCoder())
+    _, jboxes = jit_o0(lambda *a: j_roi_utils.generate_predicted_boxes_roi(*a, JResidualCoder()))(
+        jnp.asarray(rois), jnp.asarray(rcnn_cls), jnp.asarray(rcnn_reg))
     _, boxes = roi_utils.generate_predicted_boxes_roi(t(rois), t(rcnn_cls), t(rcnn_reg),
                                                       ResidualCoder())
     np.testing.assert_allclose(boxes.numpy(), np.asarray(jboxes), rtol=1e-5, atol=1e-5)

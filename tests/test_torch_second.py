@@ -12,8 +12,10 @@ the BEV features and the anchor head's outputs, the kept detections and the
 top-K decode against JAX's on one test-mode batch, and the port's fused
 contract (``FUSED_CONV: True``, kernels K1-K3) against the same JAX run.
 Training: three ``make_train_step`` steps on one augmented batch against
-JAX's, held as ``test_torch_train.py`` holds CenterPoint-Res (targets,
-step-1 gradients, losses, updates and BatchNorm statistics). And the
+JAX's (composed as its ``make_train_step`` composes them, as
+``test_torch_train.py`` does), held as that file holds CenterPoint-Res
+(targets, step-1 gradients, losses, updates and BatchNorm statistics). The
+forward's JAX program is compiled at -O0 (``XLA_O0``). And the
 legacy contract of CenterPoint-Res's residual backbone against its fused
 one.
 """
@@ -25,7 +27,7 @@ import pytest
 import torch
 from chip_smoke import second_tiny, update_mismatches
 from test_torch_model import CFG as CENTERPOINT_CFG
-from test_torch_model import random_tree, tiny
+from test_torch_model import jit_o0, random_tree, tiny
 from test_torch_parta2 import assert_close_to_max
 
 from toda_tpu.config import EDict as JEDict
@@ -57,6 +59,9 @@ def _port(fused, training=False):
                                              training=training), device="cpu")
 
 
+_SHAPES = {}  # the flax tree's shapes, traced once for both fixtures
+
+
 def _jax_setup(training):
     np.random.seed(0)
     jcfg = second_tiny(j_cfg_from_yaml_file(CFG, JEDict()))
@@ -65,10 +70,11 @@ def _jax_setup(training):
     batch = next(iter(jloader))
     arrays = {k: jnp.asarray(v) for k, v in j_train_utils.select_batch_arrays(batch).items()}
     jb = j_build_network(jcfg.MODEL, num_class=len(jcfg.CLASS_NAMES), dataset=jds)
-    key = jax.random.PRNGKey(0)
-    shapes = jax.eval_shape(lambda b: jb.module.init(
-        {"params": key, "sampling": key, "dropout": key}, b, training=False), arrays)
-    tree = random_tree(dict(shapes), np.random.RandomState(1))
+    if not _SHAPES:
+        key = jax.random.PRNGKey(0)
+        _SHAPES.update(jax.eval_shape(lambda b: jb.module.init(
+            {"params": key, "sampling": key, "dropout": key}, b, training=False), arrays))
+    tree = random_tree(_SHAPES, np.random.RandomState(1))
     return jcfg, jb, batch, arrays, tree
 
 
@@ -78,7 +84,7 @@ def infer():
     contracts, on one test-mode batch."""
     _, jb, batch, arrays, tree = _jax_setup(training=False)
 
-    @jax.jit
+    @jit_o0
     def jrun(variables, b):
         out = jb.module.apply(variables, b, training=False)
         return {k: out[k] for k in HEAD_KEYS}, jb.post_processing(out), jb.decode_topk(out, 16)
@@ -189,14 +195,27 @@ def train():
                                             batch_stats=stats)
     port_module = _port(False)[1].module
     init = state_dict_from_flax(tree, port_module)
-    jgrads = jax.jit(jax.grad(lambda p: jb.loss(
-        {"params": p, "batch_stats": stats}, dict(arrays, batch_size=2))[0]))(params)
     jtargets = jax.device_get(jb.assigner.assign(arrays["gt_boxes"]))
-    jstep = j_train_utils.make_train_step(jb)
-    jlosses = []
+    step_batch = dict(arrays, batch_size=2)
+
+    @jax.jit
+    def value_and_grad(p, s):
+        def loss_fn(p):
+            total, (tb, new_state) = jb.loss({"params": p, "batch_stats": s}, step_batch)
+            return total, (tb, new_state)
+
+        return jax.value_and_grad(loss_fn, has_aux=True)(p)
+
+    @jax.jit
+    def apply_gradients(state, grads, new_stats):
+        return state.apply_gradients(grads=grads).replace(batch_stats=new_stats)
+
+    jlosses, jgrads = [], None
     for _ in range(STEPS):
-        state, tb = jstep(state, arrays)
-        jlosses.append({k: float(v) for k, v in tb.items()})
+        (loss, (tb, new_state)), grads = value_and_grad(state.params, state.batch_stats)
+        jgrads = grads if jgrads is None else jgrads
+        state = apply_gradients(state, grads, new_state["batch_stats"])
+        jlosses.append({**{k: float(v) for k, v in tb.items()}, "loss": float(loss)})
     final = {"params": jax.device_get(state.params), "batch_stats": jax.device_get(state.batch_stats)}
 
     port = _port_steps(False, init, batch)

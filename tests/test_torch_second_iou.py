@@ -25,7 +25,7 @@ import numpy as np
 import pytest
 import torch
 from chip_smoke import second_tiny, update_mismatches
-from test_torch_model import random_tree
+from test_torch_model import jit_o0, random_tree
 from test_torch_parta2 import assert_close_to_max
 from test_torch_second import flax_init_tree
 
@@ -137,10 +137,10 @@ def head():
     jhead = j_second_head.SECONDHead(model_cfg=HEAD_CFG, input_channels=c,
                                      point_cloud_range=PC_RANGE, voxel_size=VOXEL, bev_stride=8)
     batch = {"spatial_features_2d": jnp.asarray(fmap), "rois": jnp.asarray(rois)}
-    params = jax.tree_util.tree_map(np.asarray, jhead.init(jax.random.PRNGKey(0), batch))
+    params = jax.tree_util.tree_map(np.asarray, jit_o0(jhead.init)(jax.random.PRNGKey(0), batch))
     params = jax.tree_util.tree_map(lambda v: v + 0.1 * rng.standard_normal(v.shape)
                                     .astype(np.float32), params)
-    jout = jhead.apply(params, dict(batch))
+    jout = jit_o0(jhead.apply)(params, dict(batch))
     port = second_head.SECONDHead(HEAD_CFG, c, PC_RANGE, VOXEL, 8)
     port.load_state_dict(state_dict_from_flax(params, port), strict=True)
     pout = port({"spatial_features_2d": t(fmap).permute(0, 3, 1, 2), "rois": t(rois)})
@@ -182,7 +182,7 @@ def test_second_head_loss_equals_jax(head):
     gt[:, :3, 7] = 1
     gt[0, 3, :7], gt[0, 3, 7] = rois[0, 4], 0  # a padded row on a RoI counts nothing
     got, tb = second_head.second_head_loss(head["pout"], t(gt))
-    want, _ = j_second_head.second_head_loss(head["jout"], jnp.asarray(gt))
+    want, _ = jit_o0(j_second_head.second_head_loss)(head["jout"], jnp.asarray(gt))
     assert float(got.detach()) == pytest.approx(float(want), rel=1e-6)
     assert set(tb) == {"rcnn_loss_iou"}
 
@@ -287,7 +287,7 @@ def train():
     def apply_gradients(state, grads, new_stats):
         return state.apply_gradients(grads=grads).replace(batch_stats=new_stats)
 
-    @jax.jit
+    @jit_o0
     def predict(variables):
         out = jb.module.apply(variables, arrays, training=False)
         dets = {}

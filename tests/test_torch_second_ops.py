@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_model import jit_o0, vjp_o0
 
 from toda_tpu.models.dense_heads import anchor_head_single as j_head
 from toda_tpu.models.dense_heads.target_assigner.anchor_generator import (
@@ -88,8 +89,8 @@ def test_k8_plain_equals_jax_interpret_kernel(monkeypatch):
     monkeypatch.setattr(pg, "INTERPRET", True)
     meta, li4, overflow = pg._taps_t_prologue(jnp.asarray(sub), table.shape[1], pg.SPAN_T)
     assert not bool(overflow)
-    kernel = pg._pallas_gather_taps_t(jnp.asarray(table, jnp.bfloat16), meta, li4,
-                                      sub.shape[0], 3, pg.SPAN_T)
+    kernel = jit_o0(lambda *a: pg._pallas_gather_taps_t(*a, sub.shape[0], 3, pg.SPAN_T))(
+        jnp.asarray(table, jnp.bfloat16), meta, li4)
     for t, want in enumerate(kernel):
         _same(got[t], want)
 
@@ -132,7 +133,8 @@ def test_k7_plain_equals_jax_interpret_kernel(monkeypatch):
     monkeypatch.setattr(pg, "INTERPRET", True)
     meta, li4, overflow = pg._stacked_prologue(ij, table.shape[1], pg.SPAN_T)
     assert not bool(overflow)
-    want = pg._pallas_gather9_stacked(tj, meta, li4, m, pg.SPAN_T, chunk, identity, tj)
+    want = jit_o0(lambda t_, me, li: pg._pallas_gather9_stacked(t_, me, li, m, pg.SPAN_T, chunk,
+                                                                identity, t_))(tj, meta, li4)
     _same(got, want)
     monkeypatch.setattr(pg, "INTERPRET", False)
     fallback = np.asarray(pg.gather9_stacked_t(tj, ij, chunk=chunk, identity_tap=identity),
@@ -200,8 +202,8 @@ def test_pillar_conv3d_t_forward_and_gradients_equal_jax(case, monkeypatch):
         return jps.pillar_conv3d_t(x, jnp.asarray(k["idx"]), w, jnp.asarray(k["mask"]), k["nz"],
                                    k["z_stride"], k["identity"], jnp.asarray(k["inv"]))
 
-    jout, vjp = jax.vjp(jconv, jnp.asarray(k["flatT"]), jnp.asarray(k["w"]))
-    jdx, jdw = vjp(jnp.asarray(k["ct"]))
+    jout, (jdx, jdw) = vjp_o0(jconv, (jnp.asarray(k["flatT"]), jnp.asarray(k["w"])),
+                              jnp.asarray(k["ct"]))
 
     x = torch.from_numpy(k["flatT"]).requires_grad_()
     w = torch.from_numpy(k["w"]).requires_grad_()
@@ -250,7 +252,7 @@ def targets():
     for got, ref in ((anchors, janchors), (cls, jcls), (m, jm), (u, ju)):
         np.testing.assert_array_equal(got, ref)
     gt = _gt_boxes(anchors, np.random.RandomState(4))
-    want = JAssigner(janchors, jcls, jm, ju, JCoder()).assign(jnp.asarray(gt))
+    want = jit_o0(JAssigner(janchors, jcls, jm, ju, JCoder()).assign)(jnp.asarray(gt))
     got = AxisAlignedTargetAssigner(
         torch.from_numpy(anchors), torch.from_numpy(cls), torch.from_numpy(m),
         torch.from_numpy(u), ResidualCoder()).assign(torch.from_numpy(gt))
@@ -288,9 +290,9 @@ def test_anchor_head_losses_equal_jax(targets):
            "dir_cls_preds": rng.normal(0, 1, (2, n, 2))}
     out = {k: v.astype(np.float32) for k, v in out.items()}
     head_cfg = cfg.MODEL.DENSE_HEAD
-    jtotal, jtb = j_head.anchor_head_loss(
-        dict({k: jnp.asarray(v) for k, v in out.items()}, batch_size=2),
-        {k: jnp.asarray(v) for k, v in want.items()}, None, head_cfg, 2, JCoder())
+    jtotal, jtb = jit_o0(lambda o, w: j_head.anchor_head_loss(
+        dict(o, batch_size=2), w, None, head_cfg, 2, JCoder()))(
+        {k: jnp.asarray(v) for k, v in out.items()}, {k: jnp.asarray(v) for k, v in want.items()})
     total, tb = anchor_head_loss({k: torch.from_numpy(v) for k, v in out.items()}, got,
                                  head_cfg, 2)
     assert set(tb) == set(jtb) == {"rpn_loss_cls", "rpn_loss_loc", "rpn_loss_dir", "rpn_loss"}

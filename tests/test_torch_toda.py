@@ -9,7 +9,8 @@ consistency loss's box reversal and matching; and one stage-2
 consistency term, one AdamW update) against JAX's. The JAX weights are the
 flax tree's shapes (``jax.eval_shape``) filled with numpy
 (``test_torch_model.random_tree``), carried into the port by
-``state_dict_from_flax``.
+``state_dict_from_flax``. JAX's programs here are compiled at -O0
+(``test_torch_model.XLA_O0``).
 """
 
 import jax
@@ -18,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 from chip_smoke import update_mismatches
-from test_torch_model import CFG, random_tree, tiny
+from test_torch_model import CFG, XLA_O0, jit_o0, random_tree, tiny, vjp_o0
 
 from toda_tpu.config import EDict as JEDict
 from toda_tpu.config import cfg_from_yaml_file as j_cfg_from_yaml_file
@@ -91,7 +92,7 @@ def test_eval_loss_points_gradient_equals_jax(model):
         b = dict(arrays, points=points, batch_size=points.shape[0])
         return jb.loss(variables, b, training=False, mutable=())[0]
 
-    jval, jgrad = jax.jit(jax.value_and_grad(jloss))(arrays["points"])
+    jval, jgrad = jit_o0(jax.value_and_grad(jloss))(arrays["points"])
     jgrad = np.asarray(jgrad)
 
     before = {k: v.clone() for k, v in pb.module.state_dict().items()}
@@ -133,9 +134,9 @@ def test_decode_topk_values_and_gradient_equal_jax(model):
               for k, c in widths.items()}]
     cot_b = rng.randn(2, 16, 7).astype(np.float32)
     cot_s = rng.randn(2, 16).astype(np.float32)
-    (jboxes, jscores), vjp = jax.vjp(
-        lambda h: jb.decode_topk({"center_pred_dicts": h}, k=16), heads)
-    (jgrads,) = vjp((jnp.asarray(cot_b), jnp.asarray(cot_s)))
+    (jboxes, jscores), (jgrads,) = vjp_o0(
+        lambda h: jb.decode_topk({"center_pred_dicts": h}, k=16), (heads,),
+        (jnp.asarray(cot_b), jnp.asarray(cot_s)))
 
     pheads = [{k: torch.tensor(np.asarray(v)).permute(0, 3, 1, 2).contiguous()
                .requires_grad_() for k, v in h.items()} for h in heads]
@@ -170,14 +171,14 @@ def test_reverse_boxes_and_consistency_loss_equal_jax():
     aug = np.asarray([[1, 0, 0.3, 1.03, 0, 0, 0], [0, 1, -0.2, 0.97, 0.5, -0.4, 0.1],
                       [1, 1, 0.1, 1.0, 0, 0, 0]], np.float32)
     rev = consistency.reverse_boxes(torch.from_numpy(base), torch.from_numpy(aug))
-    np.testing.assert_allclose(rev.numpy(), np.asarray(j_consistency.reverse_boxes_jnp(
+    np.testing.assert_allclose(rev.numpy(), np.asarray(jit_o0(j_consistency.reverse_boxes_jnp)(
         jnp.asarray(base), jnp.asarray(aug))), rtol=1e-5, atol=1e-5)
 
     def jloss(a, o):
         c, s = j_consistency.consistency_loss(a, jnp.asarray(sa), o, jnp.asarray(sb), 0.3)
         return c + 2 * s, (c, s)
 
-    (_, (jc, js)), jg = jax.value_and_grad(jloss, argnums=(0, 1), has_aux=True)(
+    (_, (jc, js)), jg = jit_o0(jax.value_and_grad(jloss, argnums=(0, 1), has_aux=True))(
         jnp.asarray(base), jnp.asarray(other))
     ta, to = (torch.from_numpy(v).requires_grad_() for v in (base, other))
     c, s = consistency.consistency_loss(ta, torch.from_numpy(sa), to, torch.from_numpy(sb), 0.3)
@@ -205,7 +206,8 @@ def test_cl_train_step_equals_jax(model):
     state = TrainState.create(apply_fn=jb.module.apply, params=jtree["params"], tx=tx,
                               batch_stats=jtree["batch_stats"])
     jstep = j_train_cl.make_train_step_cl(jb, consistency_weight=0.1, score_thresh=0.0)
-    state, jtb = jstep(state, j_train_cl.select_cl_arrays(cl_batch))
+    arrays = j_train_cl.select_cl_arrays(cl_batch)
+    state, jtb = jstep.lower(state, arrays).compile(compiler_options=XLA_O0)(state, arrays)
     jfinal = state_dict_from_flax({"params": jax.device_get(state.params),
                                    "batch_stats": jax.device_get(state.batch_stats)}, pb.module)
 

@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 from test_fused_conv import _no_overflow, _subm_setup
+from test_torch_model import jit_o0
 from test_torch_ops import VOX, _scan, _sorted_idx_with_tails, t, to_port
 from test_torch_second_ops import _tables
 
@@ -45,9 +46,14 @@ def test_scatter_rows_add_vjp_equals_jax():
     gbar = rng.randn(600, 5).astype(np.float32)
     for jdt, tdt in ((jnp.float32, torch.float32), (jnp.bfloat16, torch.bfloat16)):
         gj = jnp.asarray(g, jdt)
-        _, vjp = jax.vjp(lambda a: pg.scatter_rows_add(a, jnp.asarray(idx), 600,
-                                                       out_dtype=jnp.float32), gj)
-        (want,) = vjp(jnp.asarray(gbar))
+
+        @jit_o0
+        def jax_vjp(a, ct):
+            _, vjp = jax.vjp(lambda a: pg.scatter_rows_add(a, jnp.asarray(idx), 600,
+                                                           out_dtype=jnp.float32), a)
+            return vjp(ct)[0]
+
+        want = jax_vjp(gj, jnp.asarray(gbar))
         gp = t(f32(gj)).to(tdt).requires_grad_()
         out = gather.scatter_rows_add(gp, t(idx), 600)
         out.backward(t(gbar))
@@ -55,7 +61,7 @@ def test_scatter_rows_add_vjp_equals_jax():
         np.testing.assert_array_equal(gp.grad.float().numpy(), f32(want))
     np.testing.assert_array_equal(
         gather.gather_rows(t(gbar), t(idx)).numpy(),
-        np.asarray(pg.gather_rows(jnp.asarray(gbar), jnp.asarray(idx))))
+        np.asarray(jit_o0(pg.gather_rows)(jnp.asarray(gbar), jnp.asarray(idx))))
 
 
 def test_unpack_pillars_vjp_equals_jax():
@@ -76,8 +82,13 @@ def test_unpack_pillars_vjp_equals_jax():
         for k in range(c + 1):
             raw[:, :, g * 16 + 2 * k] = cells[:, :, g, k]
     gy = jnp.asarray(rng.randn(nz * cpad, bt * p), jnp.bfloat16)
-    _, vjp = jax.vjp(lambda o: pg.unpack_pillars_t(o, nz, c, cpad, p), jnp.asarray(raw))
-    (graw,) = vjp(gy)
+
+    @jit_o0
+    def jax_vjp(o, ct):
+        _, vjp = jax.vjp(lambda o: pg.unpack_pillars_t(o, nz, c, cpad, p), o)
+        return vjp(ct)[0]
+
+    graw = jax_vjp(jnp.asarray(raw), gy)
     want = np.asarray(graw).reshape(bt, p * nz // 8, 8, 16)[..., 0:2 * (c + 1):2]
     want = want.reshape(ncell, c + 1)
     sp = t(sums).requires_grad_()
@@ -103,7 +114,7 @@ def test_voxelizer_points_gradient_equals_jax():
                                            v["pc_range"], v["grid_size"], max_pillars, v["nz"])
         return (out["pillar_features"] * cot).sum()
 
-    want = np.asarray(jax.grad(jloss)(jnp.asarray(pts)))
+    want = np.asarray(jit_o0(jax.grad(jloss))(jnp.asarray(pts)))
     pp = t(pts).requires_grad_()
     got = pillar_sparse.voxelize_pillars_batched(pp, t(mask), v["voxel_size"], v["pc_range"],
                                                  v["grid_size"], max_pillars, v["nz"])
@@ -134,9 +145,13 @@ def test_first_conv_dx_equals_jax_split_backward_interpret(monkeypatch):
     gy = jnp.asarray(rng.standard_normal((nz * cout, idx.shape[0])), jnp.float32)
     gy = (gy * jnp.asarray(mask)[None, :]).astype(jnp.bfloat16)
     assert pfc.fused_ok(x.shape, x.dtype, c, cout, idx.shape[0], nz, 1)
-    _, vjp = jax.vjp(lambda x_: pfc.fused_bnconv9_t(x_, one, zero, w, idx, inv, nz, 1, 4,
-                                                    False, split_bwd=True), x)
-    (jdx,) = vjp(gy)
+    @jit_o0
+    def jax_dx(x, gy):
+        _, vjp = jax.vjp(lambda x_: pfc.fused_bnconv9_t(x_, one, zero, w, idx, inv, nz, 1, 4,
+                                                        False, split_bwd=True), x)
+        return vjp(gy)[0]
+
+    jdx = jax_dx(x, gy)
     xp = t(to_port(f32(x), nz)).bfloat16()
     wp, invp = t(f32(w)).bfloat16(), t(np.asarray(inv))
     gyp = t(to_port(f32(gy), nz)).bfloat16()
@@ -192,7 +207,8 @@ def test_k10_plain_equals_jax_fallback_f32():
     is the column's own index (copying and gathering agree there)."""
     nz, c, cout = 4, 16, 8
     table, idx, w = _k10_case(np.random.RandomState(10), nz, c, cout)
-    want = f32(pg.gather9_conv_t(jnp.asarray(table), jnp.asarray(idx), jnp.asarray(w), nz))
+    want = f32(jit_o0(lambda *a: pg.gather9_conv_t(*a, nz))(jnp.asarray(table), jnp.asarray(idx),
+                                                           jnp.asarray(w)))
     for tap in (None, 4):
         got = gather.gather9_conv_t(t(table), t(idx), t(w), nz, identity_tap=tap).numpy()
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())

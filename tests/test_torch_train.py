@@ -1,14 +1,20 @@
 """The CenterPoint-Res training step: the PyTorch port against the JAX package.
 
 The tiny CenterPoint-Res of ``test_torch_model.py`` in f32 starts from JAX's
-own initialisation (``create_train_state``), carried into the port by
-``state_dict_from_flax``. Both train on the same augmented training batch
-(the JAX loader's) for three steps of their ``make_train_step``: the OneCycle
-LR and b1, AdamW with weight decay, the global-norm clip and the BatchNorm
-running statistics are all on the path. The updates are held by
+own initialisation (``create_train_state``'s), carried into the port by
+``state_dict_from_flax``. JAX's programs are compiled at -O0
+(``test_torch_model.XLA_O0``). Both train on the same augmented training batch
+(the JAX loader's) for three steps: the port's ``make_train_step``, and
+JAX's composed as its ``make_train_step`` composes them (``bundle.loss``'s
+value and gradient, then ``TrainState.apply_gradients``; this detector draws
+no random numbers in a step), so one compile gives JAX's step-1 gradients
+and its three steps. The OneCycle LR and b1, AdamW with weight decay, the
+global-norm clip and the BatchNorm running statistics are all on the path. The updates are held by
 ``chip_smoke.update_mismatches``, the check the card's run applies to cuda
 against cpu; planted optimizer faults show that it fails them.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -16,12 +22,13 @@ import numpy as np
 import pytest
 import torch
 from chip_smoke import update_mismatches
-from test_torch_model import CFG, tiny
+from test_torch_model import CFG, jit_o0, tiny
 
 from toda_tpu.config import EDict as JEDict
 from toda_tpu.config import cfg_from_yaml_file as j_cfg_from_yaml_file
 from toda_tpu.datasets import build_dataloader as j_build_dataloader
 from toda_tpu.models import build_network as j_build_network
+from toda_tpu.runtime import optimization as j_optimization
 from toda_tpu.runtime import train_utils as j_train_utils
 from toda_tpu_torch.config import EDict, cfg_from_yaml_file
 from toda_tpu_torch.datasets import build_dataset
@@ -37,8 +44,10 @@ STEPS = 3
 TOTAL_STEPS = 10  # the schedules' length: the 3 steps climb the OneCycle warm-up
 
 
+@functools.lru_cache(maxsize=1)
 def _port_module():
-    """A port module of the tiny model, the target of the weight carrier."""
+    """A port module of the tiny model, the target of the weight carrier
+    (built once: the carrier only reads its structure)."""
     pcfg = tiny(cfg_from_yaml_file(CFG, EDict()), False)
     return build_network(pcfg.MODEL, len(pcfg.CLASS_NAMES),
                          build_dataset(pcfg.DATA_CONFIG, pcfg.CLASS_NAMES), device="cpu").module
@@ -79,17 +88,37 @@ def runs():
     batch = next(iter(jloader))
     arrays = {k: jnp.asarray(v) for k, v in j_train_utils.select_batch_arrays(batch).items()}
     jb = j_build_network(jcfg.MODEL, num_class=len(jcfg.CLASS_NAMES), dataset=jds)
-    state, _ = j_train_utils.create_train_state(jb, jcfg.OPTIMIZATION, TOTAL_STEPS, arrays)
+    # create_train_state (JAX train_utils.py:71-83) with DetectorBundle.init's
+    # keys and training-mode init
+    k1, k2, k3 = jax.random.split(jax.random.PRNGKey(0), 3)
+    variables = jit_o0(lambda b: jb.module.init(
+        {"params": k1, "sampling": k2, "dropout": k3}, b, training=True))(arrays)
+    tx, _ = j_optimization.build_optimizer(jcfg.OPTIMIZATION, TOTAL_STEPS)
+    state = j_train_utils.TrainState.create(apply_fn=jb.module.apply,
+                                            params=variables["params"], tx=tx,
+                                            batch_stats=variables["batch_stats"])
     init = _state_dict(state.params, state.batch_stats)
-    jgrads = jax.jit(jax.grad(lambda p: jb.loss(
-        {"params": p, "batch_stats": state.batch_stats}, dict(arrays, batch_size=2))[0]))(
-        state.params)
     jtargets = jax.device_get(jb._center_head_helper().assign_targets(arrays["gt_boxes"]))
-    jstep = j_train_utils.make_train_step(jb)
-    jlosses = []
+    step_batch = dict(arrays, batch_size=2)
+
+    @jit_o0
+    def value_and_grad(p, s):
+        def loss_fn(p):
+            total, (tb, new_state) = jb.loss({"params": p, "batch_stats": s}, step_batch)
+            return total, (tb, new_state)
+
+        return jax.value_and_grad(loss_fn, has_aux=True)(p)
+
+    @jax.jit
+    def apply_gradients(state, grads, new_stats):
+        return state.apply_gradients(grads=grads).replace(batch_stats=new_stats)
+
+    jlosses, jgrads = [], None
     for _ in range(STEPS):
-        state, tb = jstep(state, arrays)
-        jlosses.append({k: float(v) for k, v in tb.items()})
+        (loss, (tb, new_state)), grads = value_and_grad(state.params, state.batch_stats)
+        jgrads = grads if jgrads is None else jgrads
+        state = apply_gradients(state, grads, new_state["batch_stats"])
+        jlosses.append({**{k: float(v) for k, v in tb.items()}, "loss": float(loss)})
 
     port = _port_steps(init, batch)
     ptargets = port["bundle"].module.dense_head.assign_targets(

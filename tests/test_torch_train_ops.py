@@ -6,13 +6,13 @@ PyTorch version here (CPU tensors); the CUDA kernels are held to the same
 plain versions on the card by ``chip_smoke.py``.
 """
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 from chip_smoke import dx_tolerance
 from test_fused_conv import _down_setup, _no_overflow, _subm_setup
+from test_torch_model import vjp_o0
 from test_torch_ops import CASES, _conv_case, t, to_port
 
 from toda_tpu.ops import pallas_fused_conv as pfc
@@ -57,8 +57,8 @@ def test_backward_plain_matches_jax_grad_f32(kind, act):
     gy = np.random.RandomState(4).randn(nz_out * k["w"].shape[-1],
                                         k["idx"].shape[0]).astype(np.float32)
     args = [jnp.asarray(k[n]) for n in ("x", "scale", "shift", "w")]
-    _, vjp = jax.vjp(lambda *a: pfc._ref_fwd(*a, jnp.asarray(k["idx"]), nz, s, act), *args)
-    jdx, jds, jdb, jdw = vjp(jnp.asarray(gy))
+    _, (jdx, jds, jdb, jdw) = vjp_o0(
+        lambda *a: pfc._ref_fwd(*a, jnp.asarray(k["idx"]), nz, s, act), args, jnp.asarray(gy))
     got = port_grads(*args, k["idx"], k["inv"], gy, nz, s, act)[:4]
     want = (to_port(jdx, nz), jds, jdb, jdw)
     for name, g, w in zip(("dx", "dscale", "dshift", "dW"), got, want):
@@ -101,10 +101,9 @@ def test_backward_plain_matches_pallas_kernels_bf16(monkeypatch, kind):
     nz_out = -(-nz // stride)
     gy = jnp.asarray(rng.standard_normal((nz_out * w.shape[-1], idx.shape[0])), jnp.float32)
     gy = (gy * jnp.asarray(out_mask)[None, :]).astype(jnp.bfloat16)
-    _, vjp = jax.vjp(lambda *a: pfc.fused_bnconv9_t(*a, idx, inv, nz, stride, tap, act,
-                                                    split_bwd=not act),
-                     x, scale, shift, w)
-    jdx, jds, jdb, jdw = vjp(gy)
+    _, (jdx, jds, jdb, jdw) = vjp_o0(
+        lambda *a: pfc.fused_bnconv9_t(*a, idx, inv, nz, stride, tap, act, split_bwd=not act),
+        (x, scale, shift, w), gy)
     dx, dsc, dsh, dw, h = port_grads(x, scale, shift, w, np.asarray(idx), np.asarray(inv),
                                      gy, nz, stride, act)
     xs = to_port(f32(x), nz) * f32(scale)
@@ -193,9 +192,9 @@ def test_pillars_to_dense_vjp_matches_jax():
     mask = coords[..., 0] >= 0
     feats = jnp.asarray(rng.randn(bt, p, nz, c).astype(np.float32)).astype(jnp.bfloat16)
     gbar = jnp.asarray(rng.randn(bt, *bev, nz, c).astype(np.float32)).astype(jnp.bfloat16)
-    _, vjp = jax.vjp(lambda f: jps.pillars_to_dense_batched(f, jnp.asarray(coords),
-                                                            jnp.asarray(mask), bev), feats)
-    (want,) = vjp(gbar)
+    _, (want,) = vjp_o0(lambda f: jps.pillars_to_dense_batched(f, jnp.asarray(coords),
+                                                               jnp.asarray(mask), bev),
+                        (feats,), gbar)
     ft = t(f32(feats)).bfloat16().requires_grad_()
     dense = pillar_sparse.pillars_to_dense_batched(ft, t(coords), t(mask), bev)
     assert dense.dtype == torch.bfloat16

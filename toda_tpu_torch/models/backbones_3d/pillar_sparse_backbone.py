@@ -283,8 +283,33 @@ class _PillarBackboneBase(nn.Module):
             self.add_module(f"stage{si}", PillarSubMBlockT(ch, ch, self.RESIDUAL))
             nz = out_depth(nz, 2)
         self.num_stages = len(chans)
+        self.chans = chans
         self.out_channels = chans[-1]
         self.num_bev_features = nz * chans[-1]
+        # the stage outputs a consumer reads (VoxelSetAbstraction's x_conv<i>
+        # sources); the detector sets it, and no other stage is kept
+        self.ms_keys = ()
+
+    def _stage_out(self, ms, si, x, aff, maskf, coords, mask, stride):
+        """Stage ``si``'s applied output (the pending affine applied, relu,
+        masked; the legacy contract's columns as rows), stored as
+        ``ms['x_conv<si>']`` (JAX :425-427, :470-475) when a consumer reads
+        it: features (B, P, nz, C) in the activations' dtype, coords (B, P,
+        2), mask (B, P), stride and nz. Returns the applied rows (M, nz, C),
+        or None when nothing reads the stage and it is not the last."""
+        last = si == self.num_stages
+        if f"x_conv{si}" not in self.ms_keys and not last:
+            return None
+        if self.fused:
+            rows = apply_affine(x, aff, maskf)
+        else:  # (nz*C, B*P) columns -> (B*P, nz, C) rows
+            rows = x.view(-1, self.chans[si - 1], x.shape[-1]).permute(2, 0, 1)
+        if f"x_conv{si}" in self.ms_keys:
+            bt, p = mask.shape
+            ms[f"x_conv{si}"] = {"features": rows.reshape(bt, p, rows.shape[1], rows.shape[2]),
+                                 "coords": coords, "mask": mask, "stride": stride,
+                                 "nz": rows.shape[1]}
+        return rows
 
     def forward(self, batch_dict):
         nx, ny, nz = self.grid_size
@@ -301,6 +326,7 @@ class _PillarBackboneBase(nn.Module):
                                                         bev_shape, 1), p)
         # submanifold: the inverse of tap t is column 8 - t of the same table
         invf = idxf.flip(1).contiguous() if grad else None
+        aff, ms, stride = None, {}, 1
         if self.fused:
             aff = identity_affine(x.shape[-1], x.device)
             x, aff = self.stage1(x, idxf, invf, maskf, aff)
@@ -308,6 +334,7 @@ class _PillarBackboneBase(nn.Module):
             c = x.shape[-1]
             # (B*P, nz, C) rows -> (nz*C, B*P) columns, the legacy contract's layout
             x = self.stage1(x.permute(1, 2, 0).reshape(nz * c, -1), idxf, invf, maskf)
+        rows = self._stage_out(ms, 1, x, aff, maskf, coords, mask, stride)
         for si in range(2, self.num_stages + 1):
             p_in, p_out = coords.shape[1], self.caps[si - 1]
             new_coords, new_mask = bev_downsample_sites(coords, mask, 2, p_out, bev_shape)
@@ -329,14 +356,15 @@ class _PillarBackboneBase(nn.Module):
             else:
                 x = down(x, fold_idx(nbr, p_in), inv, maskf)
                 x = stage(x, idxf, invf, maskf)
-        if self.fused:
-            x = apply_affine(x, aff, maskf)
-        else:  # (nz*C, B*P) columns -> (B*P, nz, C) rows
-            x = x.view(-1, self.out_channels, x.shape[-1]).permute(2, 0, 1)
-        cur_nz, c = x.shape[1], x.shape[2]
-        dense = pillars_to_dense_batched(x.reshape(bt, -1, cur_nz, c), coords, mask, bev_shape)
+            stride *= 2
+            rows = self._stage_out(ms, si, x, aff, maskf, coords, mask, stride)
+        cur_nz, c = rows.shape[1], rows.shape[2]
+        dense = pillars_to_dense_batched(rows.reshape(bt, -1, cur_nz, c), coords, mask, bev_shape)
         # (B, D, H, W, C), the layout HeightCompression collapses
         batch_dict["encoded_spconv_tensor"] = dense.permute(0, 3, 1, 2, 4)
+        batch_dict["encoded_spconv_tensor_stride"] = stride
+        if ms:
+            batch_dict["multi_scale_3d_features"] = ms
         return batch_dict
 
 

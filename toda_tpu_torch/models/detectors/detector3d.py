@@ -12,8 +12,9 @@ box coders and the anchor target assigner (:443-470, :521-525),
 (PillarResBackBone8x + CenterHead), SECOND (PillarBackBone8x +
 AnchorHeadSingle) and SECOND-IoU (SECOND + SECONDHead: top-NUM_ROIS
 proposals, the IoU loss :598-603, the rescoring :685-703), all three with
-training, and PartA2 (UNetV2 + AnchorHeadSingle + PointHeadIntraPart +
-PartA2FCHead, inference).
+training, PartA2 (UNetV2 + AnchorHeadSingle + PointHeadIntraPart +
+PartA2FCHead) and PV-RCNN (PillarBackBone8x + AnchorHeadSingle +
+VoxelSetAbstraction + PointHeadSimple + PVRCNNHead), both inference only.
 """
 
 from dataclasses import dataclass
@@ -28,6 +29,7 @@ from ...weights import init_like_flax_
 from ..backbones_2d.base_bev_backbone import BaseBEVBackbone
 from ..backbones_2d.map_to_bev.height_compression import HeightCompression
 from ..backbones_3d.pillar_sparse_backbone import PillarBackBone8x, PillarResBackBone8x
+from ..backbones_3d.pfe.voxel_set_abstraction import VoxelSetAbstraction
 from ..backbones_3d.pillar_unet import UNetV2
 from ..dense_heads.anchor_head_single import (
     AnchorHeadSingle,
@@ -36,19 +38,23 @@ from ..dense_heads.anchor_head_single import (
 )
 from ..dense_heads.center_head import CenterHead
 from ..dense_heads.point_head_intra_part import PointHeadIntraPart
+from ..dense_heads.point_head_simple import PointHeadSimple
 from ..dense_heads.target_assigner.anchor_generator import AnchorGenerator
 from ..dense_heads.target_assigner.axis_aligned_target_assigner import AxisAlignedTargetAssigner
 from ..roi_heads.parta2_head import PartA2FCHead
+from ..roi_heads.pvrcnn_head import PVRCNNHead
 from ..roi_heads.roi_utils import generate_predicted_boxes_roi, proposal_layer
 from ..roi_heads.second_head import SECONDHead, rescore_detections, second_head_loss
 
 BACKBONES_3D = {"PillarBackBone8x": PillarBackBone8x,
                 "PillarResBackBone8x": PillarResBackBone8x, "UNetV2": UNetV2}
-# the ported detectors (MODEL.NAME): (dense head, point head, roi head)
-DETECTORS = {"CenterPoint": ("CenterHead", None, None),
-             "SECONDNet": ("AnchorHeadSingle", None, None),
-             "SECONDNetIoU": ("AnchorHeadSingle", None, "SECONDHead"),
-             "PartA2Net": ("AnchorHeadSingle", "PointHeadIntraPart", "PartA2FCHead")}
+# the ported detectors (MODEL.NAME): (dense head, pfe, point head, roi head)
+DETECTORS = {"CenterPoint": ("CenterHead", None, None, None),
+             "SECONDNet": ("AnchorHeadSingle", None, None, None),
+             "SECONDNetIoU": ("AnchorHeadSingle", None, None, "SECONDHead"),
+             "PartA2Net": ("AnchorHeadSingle", None, "PointHeadIntraPart", "PartA2FCHead"),
+             "PVRCNN": ("AnchorHeadSingle", "VoxelSetAbstraction", "PointHeadSimple",
+                        "PVRCNNHead")}
 
 
 @dataclass(frozen=True)
@@ -86,9 +92,10 @@ def _require(cfg, key, names):
 
 class Detector3D(nn.Module):
     """3D backbone -> HeightCompression -> BaseBEVBackbone -> dense head
-    [-> point head -> proposals -> RoI head], each built from the model
-    config. ``anchors`` (numpy, the anchor head's) ride along as a
-    non-persistent buffer."""
+    [-> keypoint features (pfe)] [-> point head -> proposals -> RoI head],
+    each built from the model config, in JAX's stage order (:201-235).
+    ``anchors`` (numpy, the anchor head's) ride along as a non-persistent
+    buffer."""
 
     def __init__(self, model_cfg, meta, num_class, anchors=None, num_anchors_per_location=1,
                  box_coder=None):
@@ -101,8 +108,9 @@ class Detector3D(nn.Module):
         bb3d = _require(model_cfg, "BACKBONE_3D", BACKBONES_3D)
         _require(model_cfg, "MAP_TO_BEV", ("HeightCompression",))
         _require(model_cfg, "BACKBONE_2D", ("BaseBEVBackbone",))
-        head, point_head, roi_head = DETECTORS[name]
+        head, pfe, point_head, roi_head = DETECTORS[name]
         _require(model_cfg, "DENSE_HEAD", (head,))
+        _require(model_cfg, "PFE", (pfe,))
         _require(model_cfg, "POINT_HEAD", (point_head,))
         _require(model_cfg, "ROI_HEAD", (roi_head,))
         self.backbone_3d = BACKBONES_3D[bb3d](
@@ -127,6 +135,22 @@ class Detector3D(nn.Module):
             self.roi_head = SECONDHead(roi_cfg, bev_ch, meta.point_cloud_range, meta.voxel_size,
                                        int(roi_cfg.get("BEV_STRIDE", 8)))
             self.stages += ["proposals", "roi_head"]
+        elif roi_head == "PVRCNNHead":
+            if not hasattr(self.backbone_3d, "ms_keys"):
+                raise NotImplementedError(f"PV-RCNN over {bb3d} is not ported yet")
+            self.pfe = VoxelSetAbstraction(
+                model_cfg["PFE"], meta.voxel_size, meta.point_cloud_range, meta.grid_size,
+                meta.num_point_features, self.backbone_3d.num_bev_features,
+                {f"x_conv{i}": c for i, c in enumerate(self.backbone_3d.chans, start=1)})
+            # the backbone keeps the stage outputs the VSA reads, and no others
+            self.backbone_3d.ms_keys = self.pfe.ms_keys
+            point_ch = int(model_cfg["PFE"]["NUM_OUTPUT_FEATURES"])
+            before = model_cfg["POINT_HEAD"].get("USE_POINT_FEATURES_BEFORE_FUSION", False)
+            self.point_head = PointHeadSimple(
+                model_cfg["POINT_HEAD"],
+                self.pfe.num_point_features_before_fusion if before else point_ch, num_class)
+            self.roi_head = PVRCNNHead(roi_cfg, point_ch, num_class, box_coder.code_size)
+            self.stages += ["pfe", "point_head", "proposals", "roi_head"]
         elif roi_head is not None:
             point_ch = self.backbone_3d.num_point_features
             self.point_head = PointHeadIntraPart(model_cfg["POINT_HEAD"], point_ch, num_class)
@@ -210,7 +234,7 @@ class DetectorBundle:
         then holds the total, as in JAX)."""
         roi_head = getattr(self.module, "roi_head", None)
         if roi_head is not None and not isinstance(roi_head, SECONDHead):
-            raise NotImplementedError("training of PartA2 is not ported yet")
+            raise NotImplementedError(f"training of {self.model_cfg['NAME']} is not ported yet")
         if self.dense_head_name == "CenterHead":
             return self.module.dense_head.get_loss(out, gt_boxes)
         total, tb = anchor_head_loss(out, self.assigner.assign(gt_boxes),

@@ -5,13 +5,20 @@ convex quads is the sum, over the sub-segments of each quad's edges inside the
 other, of 1/2 * cross(u, v) for a sub-segment u -> v. Each sub-segment is a
 Liang-Barsky clip against four half-planes: all elementwise, no sort, no
 gather. A's edges clip inclusively and B's exclusively, so a shared boundary
-counts once. ``boxes_iou3d`` multiplies the BEV overlap by the z overlap.
-Every function broadcasts over leading batch dims.
+counts once. Two boxes with an edge each on one line, running opposite ways,
+lie on opposite sides of it and overlap by 0 (F11: the clipping keeps A's
+piece of the line there, so the JAX package gives boxes that abut along an
+edge an overlap). ``boxes_iou3d`` multiplies the BEV overlap by the z
+overlap. Every function broadcasts over leading batch dims.
 """
 
 import torch
 
 _EPS = 1e-8
+# two boxes abut when their axes agree to this many radians and their
+# centres lie this share of their extents (10 um a metre) from touching:
+# rotated corners carry f32 rounding of ~1e-7 of the box size
+_LINE_TOL = 1e-5
 
 
 def _box_corners_bev(boxes):
@@ -79,9 +86,31 @@ def _intersection_area_grid(corners_a, corners_b):
     return torch.clamp(total / 2.0, min=0.0)
 
 
+def _abutting(boxes_a, boxes_b):
+    """(..., N, M) True where box A and box B have their axes aligned (0 or
+    90 degrees apart) and their centres as far apart along one of A's axes
+    as their half-extents there add up to: an edge of each lies on one line,
+    the boxes on either side of it, so they overlap by 0."""
+    ha, hb = boxes_a[..., :, None, 6], boxes_b[..., None, :, 6]
+    ca, sa, cb, sb = torch.cos(ha), torch.sin(ha), torch.cos(hb), torch.sin(hb)
+    cos_d, sin_d = ca * cb + sa * sb, ca * sb - sa * cb
+    along = torch.abs(sin_d) <= _LINE_TOL  # B's x axis along A's x axis
+    across = torch.abs(cos_d) <= _LINE_TOL  # ... along A's y axis
+    dx = boxes_b[..., None, :, 0] - boxes_a[..., :, None, 0]
+    dy = boxes_b[..., None, :, 1] - boxes_a[..., :, None, 1]
+    lb, wb = boxes_b[..., None, :, 3] / 2, boxes_b[..., None, :, 4] / 2
+    reach_u = boxes_a[..., :, None, 3] / 2 + torch.where(along, lb, wb)
+    reach_v = boxes_a[..., :, None, 4] / 2 + torch.where(along, wb, lb)
+    touch_u = torch.abs(torch.abs(dx * ca + dy * sa) - reach_u) <= _LINE_TOL * reach_u
+    touch_v = torch.abs(torch.abs(dy * ca - dx * sa) - reach_v) <= _LINE_TOL * reach_v
+    return (along | across) & (touch_u | touch_v)
+
+
 def boxes_overlap_bev(boxes_a, boxes_b):
-    """(..., N, 7) x (..., M, 7) -> (..., N, M) rotated BEV intersection area."""
-    return _intersection_area_grid(_box_corners_bev(boxes_a), _box_corners_bev(boxes_b))
+    """(..., N, 7) x (..., M, 7) -> (..., N, M) rotated BEV intersection area,
+    0 for boxes that abut."""
+    inter = _intersection_area_grid(_box_corners_bev(boxes_a), _box_corners_bev(boxes_b))
+    return torch.where(_abutting(boxes_a, boxes_b), torch.zeros_like(inter), inter)
 
 
 def boxes_iou_bev(boxes_a, boxes_b):
