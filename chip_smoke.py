@@ -93,7 +93,13 @@ Phases (none catches its own failure; any failure exits non-zero):
      forward with TF32 off and one with it on, the dense head maps and the
      RoI head (on the same RoIs) compared, max relative differences logged
      beside the tiny check's 5e-3 (``phase_parta2_tf32``);
- 15b. tiny PV-RCNN in f32 (``pvrcnn_synthetic.yaml``) on cuda and on cpu
+ 15b. the ball query exactly against its plain version on calls no scene
+     gives (``phase_stress_ball_query``: x_conv4's lattice at 4 x 40,960
+     with radii that are multiples of its spacing and an all-invalid scan,
+     points on the grid's cell boundaries with queries at exactly the radius
+     and outside the cloud, a dense cluster with N not a multiple of 32 and
+     nsample 16 to 128); then
+     tiny PV-RCNN in f32 (``pvrcnn_synthetic.yaml``) on cuda and on cpu
      with the same weights and batch: FPS keypoints equal, keypoint and head
      outputs and the RoI head on the cpu's RoIs to 1e-3; then PV-RCNN at full
      width (``pvrcnn_cfg``: waymo_models/pv_rcnn.yaml on the synthetic
@@ -1986,21 +1992,156 @@ def fps_bound(points, mask, ns):
 
 
 def bq_bound(xyz, xmask, q, qmask, nsample, idx, cnt):
-    """(bound_ms, by) of one ball query: inputs read once, idx and cnt
-    written once; 9 f32 operations (3 sub, 3 mul, 2 add, 1 compare) for each
-    candidate a valid query needs, the points up to its nsample-th neighbour
-    (all N where it has fewer)."""
-    import torch
-
-    scanned = torch.where(cnt >= nsample, idx[..., -1].long() + 1, xyz.shape[1]) * qmask
+    """(bound_ms, by) of one ball query, a floor any exact algorithm obeys:
+    the inputs read once and idx and cnt written once (bytes); 9 f32
+    operations (3 sub, 3 mul, 2 add, 1 compare) for each returned
+    neighbour, 9 x the sum of cnt (operations); the larger of the two."""
     nbytes = (xyz.numel() * 4 + xmask.numel() + q.numel() * 4 + qmask.numel()
               + idx.numel() * 4 + cnt.numel() * 4)
-    return bound_ms(nbytes, 9 * int(scanned.sum().item()), H100_F32_FLOPS)
+    return bound_ms(nbytes, 9 * int(cnt.sum().item()), H100_F32_FLOPS)
+
+
+def device_ops(run, calls=5):
+    """The device kernels, copies and memsets of one call of run(), from a
+    torch.profiler trace of ``calls`` calls (CPU and CUDA activities, as
+    ``phase_profile`` traces): (their count, their device us, [(name, us)]
+    by device time), each a mean over the calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            run()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+           and e.key not in PROFILER_RANGES]
+    by_time = sorted(((e.key, e.self_device_time_total / calls) for e in ops),
+                     key=lambda t: -t[1])
+    return sum(e.count for e in ops) / calls, sum(t for _, t in by_time), by_time
+
+
+BQ_STRESS_SCANS = 4
+
+
+def bq_lattice(gen, pillars=8192, sites=5):
+    """x_conv4's sources at full size: the voxel centres of ``pillars``
+    random pillars of the Waymo 1504 x 1504 grid at stride 8 (a 0.8 m
+    lattice) and ``sites`` z-sites each, as ``_voxel_source_points``
+    computes them (4 x 40,960 candidates); ~10% of the pillars invalid, the
+    last scan all invalid. Queries: 4096 a scan, a third lattice sites, a
+    third sites moved by exactly 2.4 m along x (three steps: d2 == r2 in
+    real numbers for 2.4 and on the 4.8 ball's lattice rows), a third
+    random in the lattice's box; every 64th invalid."""
+    import torch
+
+    from toda_tpu_torch.models.backbones_3d.pfe import voxel_set_abstraction as vsa
+
+    b = BQ_STRESS_SCANS
+    cells = torch.stack([torch.randperm(188 * 188, generator=gen)[:pillars] for _ in range(b)])
+    coords = torch.stack([cells // 188, cells % 188], -1)
+    pmask = torch.rand((b, pillars), generator=gen) > 0.1
+    pmask[-1] = False
+    ms = {"features": torch.zeros((b, pillars, sites, 1)), "coords": coords, "mask": pmask,
+          "stride": 8}
+    xyz, _, mask = vsa._voxel_source_points(ms, (0.1, 0.1, 0.15), (-75.2, -75.2, -2.0), 40)
+    m = 4096
+    q = xyz[:, torch.randint(0, xyz.shape[1], (m,), generator=gen)].clone()
+    q[:, m // 3:2 * m // 3, 0] += 2.4
+    q[:, 2 * m // 3:] = torch.rand((b, m - 2 * m // 3, 3), generator=gen) * torch.tensor(
+        [150.4, 150.4, 6.0]) + torch.tensor([-75.2, -75.2, -2.0])
+    qmask = torch.ones((b, m), dtype=torch.bool)
+    qmask[:, ::64] = False
+    return xyz, mask, q, qmask
+
+
+def bq_boundaries(gen, radius, n=65536, m=4096):
+    """n points a scan in [-10, 10)^2 x [-2, 4), ~10% invalid, a point at
+    the grid's corner, half the points on cell boundaries of
+    ``ball_query_grid``'s grid (corner + k * side, and the f32 values next
+    to them); queries on boundaries moved by exactly the radius along one
+    axis, near points, one just outside the corner (within the radius of
+    it), one far outside the cloud."""
+    import torch
+
+    b = BQ_STRESS_SCANS
+    lo = torch.tensor([-10.0, -10.0, -2.0])
+    xyz = torch.rand((b, n, 3), generator=gen) * torch.tensor([20.0, 20.0, 6.0]) + lo
+    mask = torch.rand((b, n), generator=gen) > 0.1
+    xyz[:, 0], mask[:, 0] = lo, True
+    side = torch.tensor(radius * (1 + 2.0 ** -10), dtype=torch.float32)
+    k = torch.floor(torch.rand((b, n // 2, 3), generator=gen) * ((xyz[0, 1:].amax(0) - lo) / side))
+    on = lo + k * side
+    on = torch.nextafter(on, on + torch.randint(-1, 2, on.shape, generator=gen).float())
+    xyz[:, 1:n // 2 + 1] = torch.maximum(on, lo)
+    pick = torch.randint(1, n // 2 + 1, (m,), generator=gen)
+    q = xyz[:, pick].clone()
+    axis = torch.randint(0, 3, (m,), generator=gen)
+    q[:, torch.arange(m), axis] += torch.tensor(radius, dtype=torch.float32)
+    q[:, m // 2:] += torch.randn((b, m - m // 2, 3), generator=gen) * radius
+    q[:, 0] = lo - 0.9 * radius
+    q[:, 1] = 1000.0
+    return xyz, mask, q, torch.ones((b, m), dtype=torch.bool)
+
+
+def bq_cluster(gen, n=20003, dense=6000, m=1024):
+    """n points a scan (not a multiple of 32): ``dense`` of them in a 1 m
+    cube at random indices (so one ball holds hundreds of hits in several
+    cells, their indices interleaved between the cells), the rest spread
+    over 40 x 40 x 4 m; queries in and around the cube."""
+    import torch
+
+    b = BQ_STRESS_SCANS
+    xyz = torch.rand((b, n, 3), generator=gen) * torch.tensor([40.0, 40.0, 4.0]) - 20.0
+    at = torch.stack([torch.randperm(n, generator=gen)[:dense] for _ in range(b)])
+    xyz.scatter_(1, at[..., None].expand(-1, -1, 3), torch.rand((b, dense, 3), generator=gen))
+    q = torch.rand((b, m, 3), generator=gen) * 1.6 - 0.3
+    return xyz, torch.ones((b, n), dtype=torch.bool), q, torch.ones((b, m), dtype=torch.bool)
+
+
+def phase_stress_ball_query():
+    """The ball query (BQ) exactly against its plain version on calls no
+    scene gives: x_conv4's lattice at 4 x 40,960 candidates with radii
+    2.4 and 4.8 (multiples of its spacing) and an all-invalid scan; points
+    on the grid's cell boundaries with queries at exactly the radius, one
+    outside the cloud and one far away; a dense cluster with hundreds of
+    hits a ball in several cells, N not a multiple of 32, nsample 16, 32,
+    64 and 128."""
+    import torch
+
+    from toda_tpu_torch.ops import pointnet2_ops as p2
+
+    gen = torch.Generator().manual_seed(SEED)
+    lattice, cluster = bq_lattice(gen), bq_cluster(gen)
+    cases = [("lattice", 2.4, 16, lattice), ("lattice", 4.8, 32, lattice),
+             ("boundaries", 0.4, 16, bq_boundaries(gen, 0.4)),
+             ("boundaries", 0.8, 32, bq_boundaries(gen, 0.8))]
+    cases += [("cluster", 0.4, ns, cluster) for ns in (16, 32, 64, 128)]
+    for what, radius, ns, args in cases:
+        xyz, mask, q, qmask = (t.cuda() for t in args)
+        idx, cnt = p2.ball_query(radius, ns, xyz, mask, q, qmask)
+        ref = p2.ball_query_plain(radius, ns, xyz, mask, q, qmask)
+        torch.cuda.synchronize()
+        assert torch.equal(cnt, ref[1]) and torch.equal(idx, ref[0]), \
+            f"BQ stress {what} r {radius} ns {ns}: differs from the plain version"
+        full = (cnt == ns).float().mean().item()
+        if what == "lattice":
+            assert (cnt[-1] == 0).all() and (cnt[0] > 0).any(), "BQ stress lattice: counts"
+        if what == "cluster":
+            assert full > 0, "BQ stress cluster: no query holds more than nsample hits"
+        log(f"  BQ stress {what} r {radius} ns {ns} xyz{tuple(xyz.shape)} "
+            f"queries{tuple(q.shape[:2])}: equal; mean count {cnt.float().mean().item():.2f}, "
+            f"{full:.3f} of the queries full, ms "
+            f"{cuda_ms(lambda: p2.ball_query(radius, ns, xyz, mask, q, qmask), 3):.4f}")
+    log(f"phase stress BQ: {len(cases)} calls exactly equal to the plain version")
 
 
 def check_point_ops(fps_calls, bq_calls):
     """Hold each recorded FPS and ball-query call against its plain version
-    (indices and counts equal) and time both."""
+    (indices and counts equal) and time both; log the device operations of
+    the first ball-query call (the raw points') by device time."""
     import torch
 
     from toda_tpu_torch.ops import pointnet2_ops as p2
@@ -2015,6 +2156,12 @@ def check_point_ops(fps_calls, bq_calls):
             plain_ms=cuda_ms(lambda: p2.farthest_point_sampling_plain(points, mask, ns), 1,
                              warmup=0),
             library_ms=None, bound=fps_bound(points, mask, ns)))
+    (radius, ns, xyz, xmask, q, qmask, *_), _ = bq_calls[0]
+    n_ops, us, by_time = device_ops(lambda: p2.ball_query(radius, ns, xyz, xmask, q, qmask))
+    log(f"  BQ r {radius} xyz{tuple(xyz.shape)}: one call launches {n_ops:g} device kernels, "
+        f"copies and memsets (two memsets, the bounds, keys and pack kernels, the radix "
+        f"sort's passes, the grid kernel), {us:.1f} us of device time: " + ", ".join(
+            f"{name[:48]} {t:.1f}" for name, t in by_time))
     for (radius, ns, xyz, xmask, q, qmask, *_), _ in bq_calls:
         idx, cnt = p2.ball_query(radius, ns, xyz, xmask, q, qmask)
         ref = p2.ball_query_plain(radius, ns, xyz, xmask, q, qmask)
@@ -3505,6 +3652,7 @@ def main():
 
     # PV-RCNN inference at the Waymo config's widths (TF32 as for PartA2)
     torch.backends.cudnn.allow_tf32 = False
+    phase_stress_ball_query()
     phase_pvrcnn_tiny_parity()
     torch.backends.cudnn.allow_tf32 = True
     vrows, vlaunches, pvrcnn_scans = phase_pvrcnn(pvrcnn_cfg())

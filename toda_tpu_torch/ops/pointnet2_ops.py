@@ -12,10 +12,13 @@ FPS (4095 dependent steps) and a (chunk, N) distance matrix for the ball
 query. On the H100 both are CUDA kernels (``csrc/pointnet2.cu``, whose
 header says how each is built and what bounds it), because the plain
 versions cost ~25k launches a batch (FPS) and gigabytes of distance
-matrices (ball query). Both give indices equal to their plain versions:
-the squared distance is ``(dx*dx + dy*dy) + dz*dz`` in f32, rounded after
-each operation, the radius test ``d2 < float32(radius**2)``, and argmax
-ties go to the lower index.
+matrices (ball query). The ball query bins the candidates into a grid of
+cells at least the radius wide first (``ball_query_grid`` is the binning's
+plain version), so a query tests only the candidates of its 27 cells. Both
+give indices equal to their plain versions: the squared distance is
+``(dx*dx + dy*dy) + dz*dz`` in f32, rounded after each operation, the
+radius test ``d2 < float32(radius**2)``, and argmax ties go to the lower
+index.
 
 Each wrapper runs its plain PyTorch version for tensors on the CPU,
 launches its kernel for CUDA tensors (or raises), and counts its launches
@@ -38,6 +41,13 @@ FPS_CTAS = 16
 FPS_THREADS = 1024
 FPS_PER_THREAD = 16
 FPS_MAX_POINTS = FPS_CTAS * FPS_THREADS * FPS_PER_THREAD
+# BQ (pointnet2.cu ball_query_grid_kernel): a warp keeps a query's nsample
+# smallest in-ball indices, up to 4 a lane; the grid's cell side is at least
+# the radius times 1 + BQ_CELL_MARGIN, with at most BQ_MAX_CELLS cells an
+# axis, fewer where b scans' keys would reach 2**31 (``bq_axis_cells``)
+BQ_MAX_NSAMPLE = 128
+BQ_CELL_MARGIN = 2.0 ** -10
+BQ_MAX_CELLS = 2048
 _bound = False
 
 
@@ -48,7 +58,10 @@ def _lib():
         p, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.toda_fps.argtypes = [p, p, p, i32, i32, i32, p]
         lib.toda_fps.restype = i32
-        lib.toda_ball_query.argtypes = [p, p, p, p, p, p, i32, i32, i32, f32, i32, p]
+        lib.toda_ball_query_workspace.argtypes = [i32, i32]
+        lib.toda_ball_query_workspace.restype = ctypes.c_size_t
+        lib.toda_ball_query.argtypes = [p, p, p, p, p, p, p, ctypes.c_size_t, i32, i32, i32, f32,
+                                        f32, i32, i32, p]
         lib.toda_ball_query.restype = i32
         _bound = True
     return lib
@@ -157,13 +170,100 @@ def ball_query_plain(radius, nsample, xyz, xyz_mask, new_xyz, new_mask, chunk=51
     return idx, cnt
 
 
+def bq_side_min(radius):
+    """The grid's least cell side, float32(radius * (1 + BQ_CELL_MARGIN))."""
+    return float(np.float32(float(radius) * (1 + BQ_CELL_MARGIN)))
+
+
+def bq_axis_cells(b):
+    """The most cells along an axis for b scans: BQ_MAX_CELLS, or fewer so
+    that b * cells**3 < 2**31 and every key fits 31 bits."""
+    cap = min(BQ_MAX_CELLS, int((2 ** 31 / b) ** (1 / 3)) + 1)
+    while b * cap ** 3 >= 2 ** 31:
+        cap -= 1
+    return cap
+
+
+def ball_query_grid(radius, xyz, xyz_mask, new_xyz):
+    """Plain PyTorch version of the ball-query kernel's binning (the CPU
+    tests hold it to brute force; the kernels compute the same keys and
+    ranges in the same f32 operations): the candidates ordered by (scan,
+    cell), and each query's candidate ranges.
+
+    The grid starts at the valid candidates' lower corner (over all scans;
+    0 where none is valid). Its cell side along an axis is ``bq_side_min``,
+    or the extent / (cap - 1) where that is larger, cap = ``bq_axis_cells(B)``.
+    A cell index is ``floor((x - corner) / side)`` in f32, clamped to [-2,
+    cells + 1], for candidates and queries alike. Keys run (scan, cy, cx,
+    cz), so a column's three z-cells are one run of the order: a query has
+    nine ranges, the columns (cy + dy, cx + dx) for dy, dx in (-1, 0, 1)
+    over z-cells cz - 1 .. cz + 1, clamped to the grid (empty off it). An
+    invalid candidate's key, B x cells, lies past every cell, in no range.
+    The ranges of a query are disjoint.
+
+    Why no in-ball point is missed: f32 rounds x - corner and its quotient
+    by the side, so a cell position u is off its real value by at most
+    2**-23 * u <= 2**-23 * BQ_MAX_CELLS = 2**-12. A point whose f32 d2 is
+    below float32(r**2) lies within r * (1 + 3 * 2**-24) of the query
+    along each axis, so the two positions differ by at most (1 + 3 *
+    2**-24) / (1 + 2**-10) + 2 * 2**-12 < 1: their floors differ by at most
+    1, and the point lies in one of the query's 27 cells.
+
+    Args:
+        radius: ball radius.
+        xyz: (B, N, 3) float32 candidates; xyz_mask (B, N) bool.
+        new_xyz: (B, M, 3) float32 queries.
+    Returns order (B * N,) int64, the flat candidate indices (scan * N + i)
+    sorted stably by key, and ranges (B, M, 9, 2) int32, each column's
+    [start, end) in order.
+    """
+    b = xyz.shape[0]
+    m = new_xyz.shape[1]
+    dev = xyz.device
+    valid = xyz_mask[..., None]
+    lo = torch.where(valid, xyz, float("inf")).amin(dim=(0, 1))
+    hi = torch.where(valid, xyz, float("-inf")).amax(dim=(0, 1))
+    some = lo <= hi  # false where no candidate is valid
+    ext = torch.where(some, hi - lo, 0.0)
+    lo = torch.where(some, lo, 0.0)
+    side = torch.clamp(ext / (bq_axis_cells(b) - 1), min=bq_side_min(radius))
+    dims = torch.floor(ext / side).long() + 1  # cells along x, y, z
+
+    def cells(p):
+        u = torch.floor((p - lo) / side)
+        return torch.minimum(torch.clamp(u, min=-2.0), (dims + 1).float()).long()
+
+    nx, ny, nz = dims[0], dims[1], dims[2]
+    scan = torch.arange(b, device=dev)
+    c = cells(xyz)
+    key = ((scan[:, None] * ny + c[..., 1]) * nx + c[..., 0]) * nz + c[..., 2]
+    key = torch.where(xyz_mask, key, b * ny * nx * nz).to(torch.int32)
+    skey, order = torch.sort(key.reshape(-1), stable=True)
+
+    qc = cells(new_xyz)
+    step = torch.arange(-1, 2, device=dev)
+    cy = qc[..., 1, None, None] + step[:, None]  # (B, M, 3, 1)
+    cx = qc[..., 0, None, None] + step  # (B, M, 1, 3)
+    z0 = torch.clamp(qc[..., 2] - 1, min=0)[..., None, None]
+    z1 = torch.minimum(qc[..., 2] + 1, nz - 1)[..., None, None]
+    inside = (cy >= 0) & (cy < ny) & (cx >= 0) & (cx < nx) & (z0 <= z1)
+    col = ((scan[:, None, None, None] * ny + cy) * nx + cx) * nz
+    bounds = torch.stack([torch.where(inside, col + z0, 0), torch.where(inside, col + z1 + 1, 0)],
+                         dim=-1)
+    ranges = torch.searchsorted(skey, bounds.reshape(-1).to(torch.int32), out_int32=True)
+    return order, ranges.view(b, m, 9, 2)
+
+
 def ball_query(radius, nsample, xyz, xyz_mask, new_xyz, new_mask, chunk=512):
     """Up to ``nsample`` neighbours within ``radius`` of each query (see the
-    plain version; ``chunk`` bounds only the plain version's memory).
+    plain version; ``chunk`` bounds only the plain version's memory). On
+    the card one call bins the candidates (``ball_query_grid``'s grid, in
+    kernels and a radix sort) and runs the grid kernel over each query's
+    nine ranges, all in one workspace.
 
     Args:
         radius: ball radius (the test is d2 < float32(radius**2)).
-        nsample: slots per query.
+        nsample: slots per query, at most BQ_MAX_NSAMPLE on the card.
         xyz: (B, N, 3) float32 candidates, contiguous; xyz_mask (B, N) bool.
         new_xyz: (B, M, 3) float32 queries, contiguous; new_mask (B, M) bool.
     Returns idx (B, M, nsample) int32 and cnt (B, M) int32.
@@ -176,13 +276,17 @@ def ball_query(radius, nsample, xyz, xyz_mask, new_xyz, new_mask, chunk=512):
     m = new_xyz.shape[1]
     _check_mask(xyz_mask, (b, n), xyz.device, "ball_query: xyz_mask")
     _check_mask(new_mask, (b, m), xyz.device, "ball_query: new_mask")
-    if nsample < 1 or n >= 2**31 - 1:
-        raise ValueError(f"ball_query: nsample {nsample} < 1 or N {n} too large")
+    if not 1 <= nsample <= BQ_MAX_NSAMPLE or n < 1 or b * n >= 2**31:
+        raise ValueError(f"ball_query: nsample {nsample} not in 1..{BQ_MAX_NSAMPLE}, or (B, N) "
+                         f"{(b, n)} empty or too large")
+    lib = _lib()
+    work = torch.empty(lib.toda_ball_query_workspace(b, n), dtype=torch.uint8, device=xyz.device)
     idx = torch.empty((b, m, nsample), dtype=torch.int32, device=xyz.device)
     cnt = torch.empty((b, m), dtype=torch.int32, device=xyz.device)
-    err = _lib().toda_ball_query(xyz.data_ptr(), xyz_mask.data_ptr(), new_xyz.data_ptr(),
-                                 new_mask.data_ptr(), idx.data_ptr(), cnt.data_ptr(), b, n, m,
-                                 radius_sq(radius), nsample, _stream(xyz))
+    err = lib.toda_ball_query(xyz.data_ptr(), xyz_mask.data_ptr(), new_xyz.data_ptr(),
+                              new_mask.data_ptr(), idx.data_ptr(), cnt.data_ptr(),
+                              work.data_ptr(), work.numel(), b, n, m, radius_sq(radius),
+                              bq_side_min(radius), bq_axis_cells(b), nsample, _stream(xyz))
     _build.check(err, "ball_query")
     LAUNCHES["ball_query"] += 1
     return idx, cnt
