@@ -98,7 +98,11 @@ Phases (none catches its own failure; any failure exits non-zero):
      with radii that are multiples of its spacing and an all-invalid scan,
      points on the grid's cell boundaries with queries at exactly the radius
      and outside the cloud, a dense cluster with N not a multiple of 32 and
-     nsample 16 to 128); then
+     nsample 16 to 128); then FPS exactly against its plain version on
+     calls no scene gives (``phase_stress_fps``: duplicates, an all-invalid
+     scan, fewer valid points than samples, N = 262,144 and 20,003, one
+     sample, nine scans, a dense cluster and a uniform cloud, the last two
+     timed, and the split of the uniform call); then
      tiny PV-RCNN in f32 (``pvrcnn_synthetic.yaml``) on cuda and on cpu
      with the same weights and batch: FPS keypoints equal, keypoint and head
      outputs and the RoI head on the cpu's RoIs to 1e-3; then PV-RCNN at full
@@ -1983,12 +1987,14 @@ def phase_pvrcnn_tiny_parity():
 
 
 def fps_bound(points, mask, ns):
-    """(bound_ms, by) of one FPS call: the points and mask read once, the
-    indices written once; 9 f32 operations (3 sub, 3 mul, 2 add, 1 min) a
-    point and step after the first."""
+    """(bound_ms, by) of one FPS call, a floor any exact algorithm obeys:
+    the points and mask read once and the indices written once (bytes).
+    The 9 f32 operations (3 sub, 3 mul, 2 add, 1 min) a point and step of
+    the unpruned update are no floor: the kernel's box test proves most of
+    them unneeded and skips them."""
     b, n, _ = points.shape
     nbytes = points.numel() * 4 + mask.numel() + b * ns * 4
-    return bound_ms(nbytes, 9 * b * n * (ns - 1), H100_F32_FLOPS)
+    return bound_ms(nbytes, 0, H100_F32_FLOPS)
 
 
 def bq_bound(xyz, xmask, q, qmask, nsample, idx, cnt):
@@ -2136,6 +2142,80 @@ def phase_stress_ball_query():
             f"{full:.3f} of the queries full, ms "
             f"{cuda_ms(lambda: p2.ball_query(radius, ns, xyz, mask, q, qmask), 3):.4f}")
     log(f"phase stress BQ: {len(cases)} calls exactly equal to the plain version")
+
+
+WAYMO_BOX = ((-75.2, -75.2, -2.0), (150.4, 150.4, 6.0))  # lower corner, extent (m)
+
+
+def fps_cloud(gen, kind, b=4, n=196608):
+    """b scans of n points, all valid: 'uniform' in Waymo's 150.4 x 150.4 x
+    6 m range; 'dense' with 80% of them (at random indices) in a 1 m cube,
+    the rest uniform; 'duplicates' with every point one of 4096 uniform
+    positions of its scan, so equal distances tie across blocks."""
+    import torch
+
+    lo, ext = (torch.tensor(v) for v in WAYMO_BOX)
+    xyz = torch.rand((b, n, 3), generator=gen) * ext + lo
+    if kind == "dense":
+        at = torch.stack([torch.randperm(n, generator=gen)[:n * 4 // 5] for _ in range(b)])
+        xyz.scatter_(1, at[..., None].expand(-1, -1, 3),
+                     torch.rand((b, n * 4 // 5, 3), generator=gen))
+    elif kind == "duplicates":
+        pos = torch.rand((b, 4096, 3), generator=gen) * ext + lo
+        xyz = torch.gather(pos, 1, torch.randint(0, 4096, (b, n, 1), generator=gen).expand(
+            -1, -1, 3))
+    return xyz.contiguous(), torch.ones((b, n), dtype=torch.bool)
+
+
+def phase_stress_fps():
+    """FPS exactly equal to its plain version on calls no scene gives:
+    duplicates (ties across blocks), an all-invalid scan, scans with 4095,
+    4096 and 4097 valid points of 4096 samples and one with 1000, N =
+    262,144 (the most), N = 20,003 (not a multiple of 16), one sample, nine
+    scans (144 blocks: more clusters than the card holds at once), a dense
+    cluster and a uniform cloud, the last two timed; then the split of the
+    uniform call: (a) FPS, (b) the distance update skipped (the step's
+    chain), (c) empty steps (a __syncthreads and one push and wait a step:
+    the floor of this design)."""
+    import torch
+
+    from toda_tpu_torch.ops import pointnet2_ops as p2
+
+    gen = torch.Generator().manual_seed(SEED)
+    n = 196608
+    cases = [("duplicates", *fps_cloud(gen, "duplicates"), 4096)]
+    xyz, mask = fps_cloud(gen, "uniform")
+    mask[2] = False
+    mask[0] = torch.rand(n, generator=gen) > 0.1
+    cases.append(("an all-invalid scan", xyz, mask, 4096))
+    mask = torch.zeros((4, n), dtype=torch.bool)
+    for i, k in enumerate((1000, 4095, 4096, 4097)):
+        mask[i, torch.randperm(n, generator=gen)[:k]] = True
+    cases.append(("1000 / 4095 / 4096 / 4097 valid", xyz, mask, 4096))
+    cases.append(("N = 262,144", *fps_cloud(gen, "uniform", n=p2.FPS_MAX_POINTS), 4096))
+    cases.append(("N = 20,003", *fps_cloud(gen, "uniform", n=20003), 1024))
+    cases.append(("one sample", xyz, mask, 1))
+    cases.append(("nine scans", *fps_cloud(gen, "uniform", b=9), 4096))
+    timed = {"dense cluster": fps_cloud(gen, "dense"), "uniform": fps_cloud(gen, "uniform")}
+    cases += [(what, *args, 4096) for what, args in timed.items()]
+    for what, xyz, mask, ns in cases:
+        xyz, mask = xyz.cuda(), mask.cuda()
+        got = p2.farthest_point_sampling(xyz, mask, ns)
+        ref = p2.farthest_point_sampling_plain(xyz, mask, ns)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), f"FPS stress {what}: differs from the plain version"
+        ms = "" if what not in timed else ", ms " + format(cuda_ms(
+            lambda: p2.farthest_point_sampling(xyz, mask, ns), 3, warmup=1), ".4f")
+        log(f"  FPS stress {what}: points{tuple(xyz.shape)}, {int(mask.sum())} valid, {ns} "
+            f"samples: equal{ms}")
+    xyz, mask = (t.cuda() for t in timed["uniform"])
+    split = {mode: cuda_ms(lambda: p2.fps_run(xyz, mask, 4096, mode), 3, warmup=1)
+             for mode in (0, 1, 2)}
+    log(f"  FPS split, uniform points{tuple(xyz.shape)} -> 4096 samples: (a) FPS "
+        f"{split[0]:.4f} ms, (b) no distance update {split[1]:.4f} ms, (c) empty steps "
+        f"{split[2]:.4f} ms; a step " + " / ".join(
+            f"{1e3 * split[m] / 4095:.4f}" for m in (0, 1, 2)) + " us")
+    log(f"phase stress FPS: {len(cases)} calls exactly equal to the plain version")
 
 
 def check_point_ops(fps_calls, bq_calls):
@@ -3653,6 +3733,7 @@ def main():
     # PV-RCNN inference at the Waymo config's widths (TF32 as for PartA2)
     torch.backends.cudnn.allow_tf32 = False
     phase_stress_ball_query()
+    phase_stress_fps()
     phase_pvrcnn_tiny_parity()
     torch.backends.cudnn.allow_tf32 = True
     vrows, vlaunches, pvrcnn_scans = phase_pvrcnn(pvrcnn_cfg())

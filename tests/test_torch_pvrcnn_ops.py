@@ -62,6 +62,111 @@ def test_fps_equals_jax(num_samples):
         assert len(set(want[1].tolist())) == 12
 
 
+def beats(d, i, bd, bi):
+    """The plain FPS's argmax order: a larger distance, or an equal one at a
+    lower index."""
+    return d > bd or (d == bd and i < bi)
+
+
+KEY_VALUES = {
+    "ties": [0.0, 1.0, 2.5, 1e9],
+    "zero": [0.0, float(np.nextafter(np.float32(0), np.float32(1))), 1e-30],
+    "big": [1e9, float(np.nextafter(np.float32(1e9), np.float32(0))),
+            float(np.nextafter(np.float32(1e9), np.float32(2e9)))],
+    "negative": [-1e9, float(np.nextafter(np.float32(-1e9), np.float32(0))), -1.0,
+                 float("-inf"), 0.0],
+    "neighbours": [float(v) for v in np.nextafter(np.float32(3.7), np.float32([0, 3.7, 9]))],
+}
+
+
+@pytest.mark.parametrize("values", sorted(KEY_VALUES))
+def test_fps_key_order_equals_beats(values):
+    """FPS's packed key (distance bits, then the inverted index) orders every
+    pair of (distance, index) as ``beats`` does: over ties, 0, 1e9, -1e9,
+    -inf and neighbouring floats, at indices 0, 1, 7 and 2**18 - 1."""
+    pairs = [(np.float32(d), i) for d in KEY_VALUES[values] for i in (0, 1, 7, 2 ** 18 - 1)]
+    d = torch.tensor([p[0] for p in pairs], dtype=torch.float32)
+    i = torch.tensor([p[1] for p in pairs])
+    key = ops.fps_key(d, i).tolist()
+    for a, (da, ia) in enumerate(pairs):
+        assert int(ops.fps_key_index(torch.tensor(key[a]))) == ia
+        for b, (db, ib) in enumerate(pairs):
+            assert (key[a] > key[b]) == beats(da, ia, db, ib), (pairs[a], pairs[b])
+
+
+def face_cloud(seed, b=3, n=480, group=12):
+    """Groups of ``group`` points with points on their boxes' faces and
+    corners and duplicates: per group a random box, its two corners, points
+    with one coordinate on a face, exact duplicates; ~10% invalid, the last
+    scan all invalid. Samples: random, on the faces, inside a box and the
+    points themselves."""
+    rng = np.random.RandomState(seed)
+    g = n // group
+    lo = rng.uniform(-10, 10, (b, g, 1, 3)).astype(np.float32)
+    hi = lo + rng.uniform(0, 3, (b, g, 1, 3)).astype(np.float32)
+    p = (lo + rng.uniform(0, 1, (b, g, group, 3)) * (hi - lo)).astype(np.float32)
+    p[:, :, 0], p[:, :, 1] = lo[:, :, 0], hi[:, :, 0]
+    axis = rng.randint(0, 3, (b, g))
+    for k in (2, 3):
+        face = np.where(rng.uniform(size=(b, g, 1)) < 0.5, lo[:, :, 0], hi[:, :, 0])
+        np.put_along_axis(p[:, :, k], axis[..., None], np.take_along_axis(
+            face, axis[..., None], -1), -1)
+    p[:, :, 4] = p[:, :, 5]
+    mask = rng.uniform(size=(b, g, group)) > 0.1
+    mask[-1] = False
+    s = np.concatenate([rng.uniform(-12, 14, (b, 64, 3)), p.reshape(b, -1, 3)[:, :64],
+                        lo[:, :16, 0] + 0.5 * (hi[:, :16, 0] - lo[:, :16, 0])], 1)
+    s[:, 64:96, 0] = lo[:, :32, 0, 0]
+    return p, mask, s.astype(np.float32)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_fps_lower_bound_never_exceeds_members(seed):
+    """fps_lower_bound of each group's box (over its valid points) to every
+    sample is at most the f32 sq_dist from the sample to every valid member,
+    with points on the boxes' faces and corners and duplicates; an
+    all-invalid group's bound is +inf (its box is empty)."""
+    p, mask, s = (torch.from_numpy(a) for a in face_cloud(seed))
+    lo, hi = ops.fps_boxes(p, mask)
+    lb = ops.fps_lower_bound(lo[:, None], hi[:, None], s[:, :, None])  # (B, S, G)
+    d = ops.sq_dist(p[:, None], s[:, :, None, None])  # (B, S, G, group)
+    member = mask[:, None].expand_as(d)
+    assert (lb[..., None].expand_as(d)[member] <= d[member]).all()
+    assert torch.isinf(lb[-1]).all() and (lb[-1] > 0).all()
+    assert (lb[:-1] == 0).any() and (lb[:-1] > 0).any()
+    touch = lb[..., None].expand_as(d)[member] == d[member]
+    assert touch.any()  # samples on a member: the bound is tight there
+
+
+def bucket_cases():
+    rng = np.random.RandomState(8)
+    base = rng.uniform(-5, 5, (2, 40, 3)).astype(np.float32)
+    dup = base[:, rng.randint(0, 40, 600)]
+    dmask = np.ones((2, 600), bool)
+    dmask[1, ::3] = False
+    few = rng.uniform(-10, 10, (2, 300, 3)).astype(np.float32)
+    fmask = np.zeros((2, 300), bool)
+    fmask[0, rng.choice(300, 10, replace=False)] = True
+    fmask[1, 100:] = True
+    return {"duplicates": (dup, dmask, 64, 12), "fewer_valid": (few, fmask, 48, 4)}
+
+
+@pytest.mark.parametrize("case", ["duplicates", "fewer_valid"])
+def test_fps_buckets_equal_jax(case):
+    """The bucketed plain FPS (the kernel's pruning: boxes of consecutive
+    sorted points, skipped where the bound proves no distance changes)
+    gives JAX's indices: on 40 distinct positions repeated 600 times (ties
+    between duplicates far apart in index), and with fewer valid points
+    than samples (10 of 300: the indices repeat); it prunes some work."""
+    xyz, mask, ns, group = bucket_cases()[case]
+    want = np.asarray(jax.vmap(lambda p, m: jops.farthest_point_sampling(p, m, ns))(
+        jnp.asarray(xyz), jnp.asarray(mask)))
+    got, share = ops.farthest_point_sampling_buckets(torch.from_numpy(xyz),
+                                                     torch.from_numpy(mask), ns, group)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert 0 < share < 1
+
+
 @pytest.mark.parametrize("radius,nsample", [(0.8, 4), (2.5, 16), (4.0, 8)])
 def test_ball_query_equals_jax(radius, nsample):
     """idx and cnt equal; the query with no neighbour and the invalid query

@@ -11,7 +11,9 @@
 // the H100: FPS is 4095 dependent steps of ~6 launches each (~25k launches a
 // batch, >100 ms of host time), and the ball query's (queries, N) distance
 // matrix is gigabytes at PV-RCNN's shapes (4096 keypoints a scan against
-// 196,608 points).
+// 196,608 points). Both bin their points first: the same bounds kernel, a
+// CUB radix sort and the same pack kernel, in a workspace the wrapper
+// allocates.
 //
 // Both give indices equal to their plain versions: the squared distance is
 // (dx*dx + dy*dy) + dz*dz with every operation rounded on its own
@@ -19,24 +21,42 @@
 // test is d2 < r2 with r2 = float32(radius**2) from the wrapper, and argmax
 // ties go to the lower index.
 //
-// FPS. A scan is one thread-block cluster of 16 blocks (the non-portable
-// cluster size) of 1024 threads; each block keeps its sixteenth of the
-// scan's points in shared memory (x, y, z as three arrays, <= 12,288 points
-// = 144 KB at N = 196,608) and each thread the running distances of its up
-// to 16 points in registers (point j of a block is thread j % 1024's k-th,
-// k = j / 1024). A step updates every distance with the last sample, takes
-// each thread's best (value, index), reduces it per warp with shuffles, per
-// block through shared memory, and across the cluster through distributed
-// shared memory: each block publishes its best (with its coordinates) in a
-// slot of its own, one cluster.sync() a step, and every block reads the 16
-// slots and reduces them the same way, so all blocks agree on the sample
-// without another barrier. The slots alternate between two buffers, so a
-// block never overwrites a slot another block may still be reading. Step 0
-// is the same reduction over the validity (the first valid point). Bound:
-// latency. The work is N x samples distance updates (~10 operations each,
-// 0.5 ms of f32 issue at 4 x 196,608 x 4,096), but the steps are dependent,
-// so a step costs a block's pass over its points plus three barriers, one of
-// them across 16 SMs; scans run in parallel in separate clusters.
+// FPS. One toda_fps call sorts each scan's points by the Morton code of their
+// cell in a 1024**3 grid (BQ's bounds kernel, fps_keys_kernel, CUB's radix
+// sort, BQ's pack kernel), then runs fps_kernel: a scan is one thread-block
+// cluster of 16 blocks (the non-portable cluster size) of 16 warps; chunk c
+// of 32 x P consecutive sorted points goes to block c % 16, warp c / 16, a
+// thread holding P consecutive ones (P = 24 up to 196,608 points a scan, 32
+// up to 2**18; measured against 8 and 32 warps a block). A block keeps its
+// points' x, y, z in shared memory; a thread keeps their running distances
+// and low key bits in registers, and the bounding box of its valid points.
+//
+// A step: (1) each thread computes lb, the rounded sq_dist from the last
+// sample to the nearest point of its box; where lb >= its largest running
+// distance no distance can change (the proof is in pointnet2_ops
+// farthest_point_sampling_buckets: rounding is monotone), so it keeps its
+// distances and its best. On PV-RCNN's scans well under 1% of the boxes
+// are updated a step after the first few hundred. (2) The argmax of one
+// order-preserving u64 key, (distance bits, inverted index, slot): a warp
+// reduces it with two redux.sync, a block through shared memory and one
+// __syncthreads, and warp 0's 16 lanes push the block's best (key and
+// coordinates, 20 bytes) into a mailbox slot of every block of the cluster
+// with st.async, counted on that block's mbarrier. (3) Every warp waits on
+// its own block's mbarrier and reduces the 16 messages itself, so all
+// blocks agree on the sample with no cluster barrier. Mailboxes and
+// mbarriers alternate between two step parities; the __syncthreads keeps a
+// block's warps within one step of each other, and no block pushes step s
+// + 2 before every block pushed step s + 1, so a slot is read before it is
+// overwritten and thread 0 rearms an mbarrier before its next phase's
+// bytes arrive. Step 0 is the same reduction over the initial keys (1e9 for
+// the valid points, -1e9 for the invalid): the first valid point. Bound:
+// latency. Unpruned, the work would be N x samples distance updates (~10
+// operations each, 0.43 ms of f32 issue at 4 x 196,608 x 4,096); pruning
+// leaves a small share of it, and the floor any exact algorithm obeys is
+// its bytes (a few microseconds). The steps are dependent: a step costs the
+// box test, a few threads' updates, the reductions and one push-and-wait
+// across 16 SMs (~0.55 us on the H100, below a cluster barrier's ~0.78 us).
+// Scans run in parallel in separate clusters.
 //
 // BQ. A spatial grid bounds the scan: a query tests only the candidates of
 // the 27 cells around it (tens to hundreds at PV-RCNN's shapes), not all N.
@@ -89,21 +109,26 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kFpsCtas = 16;
-constexpr int kFpsThreads = 1024;
-constexpr int kFpsWarps = kFpsThreads / 32;
-constexpr int kFpsPerThread = 16;
 constexpr int kBqWarps = 8;
 constexpr int kBqRanges = 9;  // a query's columns: (cy + dy, cx + dx), dy, dx in -1..1
 constexpr int kBqKeyBits = 31;  // keys are below b * cap**3 < 2**31
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kNoIndex = 0x7fffffff;
-
-struct Best {
-  float d;
-  int i;  // index within the scan
-  float x, y, z;
-};
+constexpr int kFpsCtas = 16;
+constexpr int kFpsWarps = 16;
+// points a thread: kFpsSmallP up to 16 x 16 x 32 x 24 = 196,608 points a
+// scan, kFpsLargeP up to 2**18
+constexpr int kFpsSmallP = 24;
+constexpr int kFpsLargeP = 32;
+constexpr int kFpsIdxBits = 18;  // a point's index in its scan: n <= 2**18
+constexpr unsigned kFpsIdxMask = (1u << kFpsIdxBits) - 1;
+constexpr int kFpsPosBits = 14;  // a point's slot in its block's shared memory
+constexpr unsigned kFpsPosMask = (1u << kFpsPosBits) - 1;
+constexpr int kFpsCodeBits = 31;  // a scan's sort code: 30 Morton bits and the invalid flag
+constexpr unsigned kFpsInvalidCode = 1u << 30;
+// a block's message to each rank a step: the key (2 words) and x, y as one
+// 16-byte store, z as a 4-byte one
+constexpr int kFpsStepBytes = kFpsCtas * 20;
 
 __device__ __forceinline__ float sq_dist(float ax, float ay, float az, float bx, float by,
                                          float bz) {
@@ -111,135 +136,115 @@ __device__ __forceinline__ float sq_dist(float ax, float ay, float az, float bx,
   return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
 }
 
-// (d, i) beats (bd, bi): a larger value, or an equal one at a lower index
-__device__ __forceinline__ bool beats(float d, int i, float bd, int bi) {
-  return d > bd || (d == bd && i < bi);
+// FPS's key of a point: the running distance as an order-preserving u32,
+// then the inverted index (a lower index wins a tie), then the point's slot
+// in its block (which no two points of a scan share with equal index bits),
+// so that the unsigned max of keys is the argmax with the lowest index.
+__device__ __forceinline__ unsigned fps_order(float d) {
+  const unsigned u = __float_as_uint(d);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
-__device__ __forceinline__ void warp_argmax(float& bd, int& bi) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float od = __shfl_xor_sync(kFull, bd, off);
-    const int oi = __shfl_xor_sync(kFull, bi, off);
-    if (beats(od, oi, bd, bi)) {
-      bd = od;
-      bi = oi;
-    }
-  }
+__device__ __forceinline__ float fps_unorder(unsigned u) {
+  return __uint_as_float((u & 0x80000000u) ? (u & 0x7fffffffu) : ~u);
 }
 
-__global__ void __launch_bounds__(kFpsThreads, 1)
-    fps_kernel(const float* __restrict__ points, const uint8_t* __restrict__ mask,
-               int32_t* __restrict__ out, int n, int ns) {
-  extern __shared__ float xs[];  // [per_cta] x, then y, then z
-  __shared__ Best warp_best[kFpsWarps];
-  __shared__ Best slot[2];
-  __shared__ Best win;
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank();
-  const int scan = blockIdx.x / kFpsCtas;
-  const int per_cta = (n + kFpsCtas - 1) / kFpsCtas;
-  const int lo = rank * per_cta;
-  const int cnt = max(0, min(per_cta, n - lo));
-  float* ys = xs + per_cta;
-  float* zs = ys + per_cta;
-  const float* p = points + (int64_t)scan * n * 3;
-  const uint8_t* valid = mask + (int64_t)scan * n;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+// the best key of a thread's P points: the largest distance by a tree of
+// fmaxf, then the largest low bits among the points at it (the lowest index)
+template <int P>
+__device__ __forceinline__ unsigned long long thread_best(const float (&dist)[P],
+                                                          const unsigned (&low)[P]) {
+  float t[P];
+  unsigned u[P];
+#pragma unroll
+  for (int k = 0; k < P; ++k) t[k] = dist[k];
+#pragma unroll
+  for (int w = 1; w < P; w *= 2)
+#pragma unroll
+    for (int k = 0; k + w < P; k += 2 * w) t[k] = fmaxf(t[k], t[k + w]);
+#pragma unroll
+  for (int k = 0; k < P; ++k) u[k] = dist[k] == t[0] ? low[k] : 0u;
+#pragma unroll
+  for (int w = 1; w < P; w *= 2)
+#pragma unroll
+    for (int k = 0; k + w < P; k += 2 * w) u[k] = max(u[k], u[k + w]);
+  return (unsigned long long)fps_order(t[0]) << 32 | u[0];
+}
 
-  float dist[kFpsPerThread];
-#pragma unroll
-  for (int k = 0; k < kFpsPerThread; ++k) {
-    const int j = threadIdx.x + k * kFpsThreads;
-    if (j < cnt) {
-      const int64_t g = lo + j;
-      xs[j] = p[3 * g];
-      ys[j] = p[3 * g + 1];
-      zs[j] = p[3 * g + 2];
-      dist[k] = valid[g] ? 1e9f : -1e9f;
-    } else {
-      dist[k] = -INFINITY;
-    }
-  }
-  __syncthreads();
+// the max of a warp's keys, on every lane
+__device__ __forceinline__ void warp_max_key(unsigned& hi, unsigned& lo) {
+  const unsigned h = __reduce_max_sync(kFull, hi);
+  lo = __reduce_max_sync(kFull, hi == h ? lo : 0u);
+  hi = h;
+}
 
-  for (int s = 0; s < ns; ++s) {
-    float bd = -INFINITY;
-    int bi = kNoIndex;
-    if (s == 0) {  // the first valid point: argmax of the validity
-#pragma unroll
-      for (int k = 0; k < kFpsPerThread; ++k) {
-        const int j = threadIdx.x + k * kFpsThreads;
-        const float v = dist[k] > 0.f ? 1.f : 0.f;
-        if (j < cnt && beats(v, lo + j, bd, bi)) {
-          bd = v;
-          bi = lo + j;
-        }
-      }
-    } else {
-      const float lx = win.x, ly = win.y, lz = win.z;
-#pragma unroll
-      for (int k = 0; k < kFpsPerThread; ++k) {
-        const int j = threadIdx.x + k * kFpsThreads;
-        if (j < cnt) {
-          dist[k] = fminf(dist[k], sq_dist(xs[j], ys[j], zs[j], lx, ly, lz));
-          if (beats(dist[k], lo + j, bd, bi)) {
-            bd = dist[k];
-            bi = lo + j;
-          }
-        }
-      }
-    }
-    warp_argmax(bd, bi);
-    if (lane == 0) {
-      warp_best[warp].d = bd;
-      warp_best[warp].i = bi;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      bd = warp_best[lane].d;
-      bi = warp_best[lane].i;
-      warp_argmax(bd, bi);
-      if (lane == 0) {
-        Best b;
-        b.d = bd;
-        b.i = bi;
-        const int j = bi == kNoIndex ? 0 : bi - lo;
-        b.x = cnt > 0 ? xs[j] : 0.f;
-        b.y = cnt > 0 ? ys[j] : 0.f;
-        b.z = cnt > 0 ? zs[j] : 0.f;
-        slot[s & 1] = b;
-      }
-    }
-    cluster.sync();
-    if (warp == 0) {
-      Best b;
-      if (lane < kFpsCtas) {
-        b = *cluster.map_shared_rank(&slot[s & 1], lane);
-      } else {
-        b.d = -INFINITY;
-        b.i = kNoIndex;
-        b.x = b.y = b.z = 0.f;
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        Best o;
-        o.d = __shfl_xor_sync(kFull, b.d, off);
-        o.i = __shfl_xor_sync(kFull, b.i, off);
-        o.x = __shfl_xor_sync(kFull, b.x, off);
-        o.y = __shfl_xor_sync(kFull, b.y, off);
-        o.z = __shfl_xor_sync(kFull, b.z, off);
-        if (beats(o.d, o.i, b.d, b.i)) b = o;
-      }
-      if (lane == 0) {
-        win = b;
-        if (rank == 0) out[(int64_t)scan * ns + s] = b.i;
-      }
-    }
-    __syncthreads();
-  }
-  // no block leaves while another may still read its slots
-  cluster.sync();
+// every 3rd bit from bit 0 of v's low 10 bits (Morton interleave)
+__device__ __forceinline__ unsigned spread3(unsigned v) {
+  v &= 0x3ffu;
+  v = (v | (v << 16)) & 0x030000ffu;
+  v = (v | (v << 8)) & 0x0300f00fu;
+  v = (v | (v << 4)) & 0x030c30c3u;
+  v = (v | (v << 2)) & 0x09249249u;
+  return v;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// the shared::cluster address of the same variable in block `rank`
+__device__ __forceinline__ unsigned cluster_addr(unsigned local, int rank) {
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(local), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ void bar_init(unsigned bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void bar_expect(unsigned bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ bool bar_done(unsigned bar, unsigned parity) {
+  unsigned done;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// A wait lasts microseconds; one that spins 2**24 times lost a push, and
+// traps (the launch fails) rather than hanging the card.
+__device__ __forceinline__ void bar_wait(unsigned bar, unsigned parity) {
+  for (unsigned spins = 0; !bar_done(bar, parity);)
+    if (++spins == (1u << 24)) __trap();
+}
+
+// stores into another block's shared memory that count their bytes on its
+// mbarrier (st.async: the receiver's wait sees the data)
+__device__ __forceinline__ void push4(unsigned dst, unsigned bar, unsigned a, unsigned b,
+                                      unsigned c, unsigned d) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, "
+      "[%5];" ::"r"(dst),
+      "r"(a), "r"(b), "r"(c), "r"(d), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void push1(unsigned dst, unsigned bar, unsigned a) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];" ::"r"(
+                   dst),
+               "r"(a), "r"(bar)
+               : "memory");
 }
 
 // BQ's grid. The candidates' bounds are kept as order-preserving ints of
@@ -343,6 +348,163 @@ __global__ void __launch_bounds__(256)
   const int64_t i = order[j];
   cand[j] = make_int4(__float_as_int(xyz[3 * i]), __float_as_int(xyz[3 * i + 1]),
                       __float_as_int(xyz[3 * i + 2]), (int)i);
+}
+
+// Each valid point's sort key: the scan, then the Morton code of its cell in
+// a 1024**3 grid over the valid points' bounds (BQ's bounds kernel); an
+// invalid point's code lies past every cell. pointnet2_ops.fps_sort_keys is
+// its plain version, in the same f32 operations.
+__global__ void __launch_bounds__(256)
+    fps_keys_kernel(const float* __restrict__ xyz, const uint8_t* __restrict__ mask,
+                    const int* __restrict__ bounds, int b, int n,
+                    unsigned long long* __restrict__ keys, int* __restrict__ vals) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (int64_t)b * n) return;
+  unsigned code = kFpsInvalidCode;
+  if (mask[i]) {
+    code = 0;
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      const float lo = order_float(bounds[d]), hi = order_float(bounds[3 + d]);
+      const float scale = __fdiv_rn(1024.f, fmaxf(__fsub_rn(hi, lo), 1e-30f));
+      const float u = floorf(__fmul_rn(__fsub_rn(xyz[3 * i + d], lo), scale));
+      code |= spread3((unsigned)fminf(fmaxf(u, 0.f), 1023.f)) << (2 - d);
+    }
+  }
+  keys[i] = (unsigned long long)(i / n) << kFpsCodeBits | code;
+  vals[i] = (int)i;
+}
+
+// FPS over the scans' points in sort order (see the header). kFpsWarps x 32
+// threads a block, P points a thread; mode 0 is FPS, 1 skips the distance
+// update (the step's chain alone), 2 runs empty steps (the push and wait
+// alone).
+template <int P>
+__global__ void __launch_bounds__(kFpsWarps * 32, 1)
+    fps_kernel(const int4* __restrict__ cand, const uint8_t* __restrict__ mask,
+               int32_t* __restrict__ out, int n, int ns, int mode) {
+  constexpr int kSlots = kFpsWarps * 32 * P;
+  static_assert(kSlots <= (1 << kFpsPosBits), "a slot fits the key's slot bits");
+  static_assert(kFpsCtas * kSlots <= (1 << kFpsIdxBits), "a scan's index fits its bits");
+  extern __shared__ float xs[];  // [kSlots] x, then y, then z
+  float* ys = xs + kSlots;
+  float* zs = ys + kSlots;
+  __shared__ unsigned long long warp_key[kFpsWarps];
+  __shared__ uint4 msg[2][kFpsCtas];  // per step parity and sender: key hi, lo, x, y
+  __shared__ float msg_z[2][kFpsCtas];
+  __shared__ uint64_t bar[2];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int scan = blockIdx.x / kFpsCtas;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int base = scan * n;  // flat index of the scan's point 0
+  if (threadIdx.x == 0) {
+    bar_init(smem_addr(&bar[0]), 1);
+    bar_init(smem_addr(&bar[1]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    bar_expect(smem_addr(&bar[0]), kFpsStepBytes);
+    bar_expect(smem_addr(&bar[1]), kFpsStepBytes);
+  }
+  // sorted positions q0 .. q0 + P - 1 of chunk warp * 16 + rank; point k
+  // sits in slot (warp * P + k) * 32 + lane
+  const int q0 = (warp * kFpsCtas + rank) * 32 * P + lane * P;
+  float dist[P];
+  unsigned low[P];
+  float blo[3] = {INFINITY, INFINITY, INFINITY};  // the valid points' bounds
+  float bhi[3] = {-INFINITY, -INFINITY, -INFINITY};
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    const int q = q0 + k, slot = (warp * P + k) * 32 + lane;
+    float p[3] = {0.f, 0.f, 0.f};
+    dist[k] = -INFINITY;
+    low[k] = 0;
+    if (q < n) {
+      const int4 c = cand[base + q];
+      p[0] = __int_as_float(c.x);
+      p[1] = __int_as_float(c.y);
+      p[2] = __int_as_float(c.z);
+      const bool valid = mask[c.w];
+      dist[k] = valid ? 1e9f : -1e9f;
+      low[k] = (kFpsIdxMask - (unsigned)(c.w - base)) << kFpsPosBits | (unsigned)slot;
+      if (valid) {
+#pragma unroll
+        for (int d = 0; d < 3; ++d) {
+          blo[d] = fminf(blo[d], p[d]);
+          bhi[d] = fmaxf(bhi[d], p[d]);
+        }
+      }
+    }
+    xs[slot] = p[0];
+    ys[slot] = p[1];
+    zs[slot] = p[2];
+  }
+  // the thread's best and its distance. Step 0's keys order the valid
+  // points (1e9) before the invalid (-1e9) and the absent (-inf): its argmax
+  // is the first valid point
+  unsigned long long best = thread_best(dist, low);
+  float bd = fps_unorder((unsigned)(best >> 32));
+  __syncthreads();
+  cluster.sync();  // every block's mbarriers are set before any push
+  float wx = 0.f, wy = 0.f, wz = 0.f;
+  for (int s = 0; s < ns; ++s) {
+    const int par = s & 1;
+    if (s > 0 && mode == 0) {
+      // lb: sq_dist from the sample to the nearest point of the box
+      const float lb = sq_dist(fminf(fmaxf(wx, blo[0]), bhi[0]), fminf(fmaxf(wy, blo[1]), bhi[1]),
+                               fminf(fmaxf(wz, blo[2]), bhi[2]), wx, wy, wz);
+      if (lb < bd) {
+#pragma unroll
+        for (int k = 0; k < P; ++k) {
+          const int slot = (warp * P + k) * 32 + lane;
+          dist[k] = fminf(dist[k], sq_dist(xs[slot], ys[slot], zs[slot], wx, wy, wz));
+        }
+        best = thread_best(dist, low);
+        bd = fps_unorder((unsigned)(best >> 32));
+      }
+    }
+    if (mode != 2) {
+      unsigned hi = (unsigned)(best >> 32), lo = (unsigned)best;
+      warp_max_key(hi, lo);
+      if (lane == 0) warp_key[warp] = (unsigned long long)hi << 32 | lo;
+    }
+    // also bounds the warps' skew to one step, which the mailboxes and the
+    // mbarriers' parities rely on
+    __syncthreads();
+    if (warp == 0) {
+      unsigned hi = 0, lo = 0;
+      if (mode != 2) {
+        const unsigned long long k = lane < kFpsWarps ? warp_key[lane] : 0ull;
+        hi = (unsigned)(k >> 32);
+        lo = (unsigned)k;
+        warp_max_key(hi, lo);
+      }
+      if (lane < kFpsCtas) {  // the block's best to every rank, in slot [par][rank]
+        const unsigned slot = lo & kFpsPosMask;
+        const unsigned rbar = cluster_addr(smem_addr(&bar[par]), lane);
+        push4(cluster_addr(smem_addr(&msg[par][rank]), lane), rbar, hi, lo,
+              __float_as_uint(xs[slot]), __float_as_uint(ys[slot]));
+        push1(cluster_addr(smem_addr(&msg_z[par][rank]), lane), rbar, __float_as_uint(zs[slot]));
+      }
+    }
+    // every warp waits for the 16 blocks' bests and takes their max
+    bar_wait(smem_addr(&bar[par]), (unsigned)(s >> 1) & 1u);
+    const uint4 m = lane < kFpsCtas ? msg[par][lane] : make_uint4(0u, 0u, 0u, 0u);
+    const float mz = lane < kFpsCtas ? msg_z[par][lane] : 0.f;
+    unsigned hi = m.x, lo = m.y;
+    warp_max_key(hi, lo);
+    const int src = __ffs(__ballot_sync(kFull, m.x == hi && m.y == lo)) - 1;
+    wx = __uint_as_float(__shfl_sync(kFull, m.z, src));
+    wy = __uint_as_float(__shfl_sync(kFull, m.w, src));
+    wz = __shfl_sync(kFull, mz, src);
+    if (threadIdx.x == 0) {
+      // bar[par] serves step s + 2 next; no block pushes it before this
+      // block's step s + 1 push
+      bar_expect(smem_addr(&bar[par]), kFpsStepBytes);
+      if (rank == 0) out[(int64_t)scan * ns + s] = (int)(kFpsIdxMask - (lo >> kFpsPosBits));
+    }
+  }
+  // no block leaves while another may still push to it
+  cluster.sync();
 }
 
 // The held value of slot s (k = s / 32 in registers, on lane s % 32), for
@@ -476,12 +638,14 @@ __global__ void __launch_bounds__(kBqWarps * 32)
   if (lane == 0) cnt[q] = c;
 }
 
-// The ball query's scratch, carved from the wrapper's workspace: the
-// bounds, keys and values before and after the sort, the packed
-// candidates, the sort's temporary storage.
-struct BqWork {
+// The scratch of a binning (BQ's and FPS's), carved from the wrapper's
+// workspace: the bounds, keys and values before and after the sort, the
+// packed candidates, the sort's temporary storage.
+template <typename Key>
+struct SortWork {
   int* bounds;
-  int *keys_in, *keys, *vals_in, *order;
+  Key *keys_in, *keys;
+  int *vals_in, *order;
   int4* cand;
   void* sort_tmp;
   size_t sort_bytes, total;
@@ -489,10 +653,11 @@ struct BqWork {
 
 __host__ size_t align_up(size_t x) { return (x + 255) & ~(size_t)255; }
 
-__host__ BqWork carve(void* base, int items) {
-  BqWork w = {};
-  cub::DeviceRadixSort::SortPairs(nullptr, w.sort_bytes, (const int*)nullptr, (int*)nullptr,
-                                  (const int*)nullptr, (int*)nullptr, items, 0, kBqKeyBits);
+template <typename Key>
+__host__ SortWork<Key> carve(void* base, int items, int key_bits) {
+  SortWork<Key> w = {};
+  cub::DeviceRadixSort::SortPairs(nullptr, w.sort_bytes, (const Key*)nullptr, (Key*)nullptr,
+                                  (const int*)nullptr, (int*)nullptr, items, 0, key_bits);
   const uintptr_t p = reinterpret_cast<uintptr_t>(base);
   size_t off = 0;
   auto take = [&](size_t bytes) {
@@ -501,8 +666,8 @@ __host__ BqWork carve(void* base, int items) {
     return at;
   };
   w.bounds = static_cast<int*>(take(6 * sizeof(int)));
-  w.keys_in = static_cast<int*>(take((size_t)items * sizeof(int)));
-  w.keys = static_cast<int*>(take((size_t)items * sizeof(int)));
+  w.keys_in = static_cast<Key*>(take((size_t)items * sizeof(Key)));
+  w.keys = static_cast<Key*>(take((size_t)items * sizeof(Key)));
   w.vals_in = static_cast<int*>(take((size_t)items * sizeof(int)));
   w.order = static_cast<int*>(take((size_t)items * sizeof(int)));
   w.cand = static_cast<int4*>(take((size_t)items * sizeof(int4)));
@@ -511,26 +676,39 @@ __host__ BqWork carve(void* base, int items) {
   return w;
 }
 
-}  // namespace
+// the valid candidates' bounds (two memsets and BQ's bounds kernel)
+__host__ cudaError_t bounds_of(const float* xyz, const uint8_t* mask, int items, int* bounds,
+                               cudaStream_t stream) {
+  cudaError_t err = cudaMemsetAsync(bounds, 0x7f, 3 * sizeof(int), stream);
+  if (err == cudaSuccess) err = cudaMemsetAsync(bounds + 3, 0x80, 3 * sizeof(int), stream);
+  if (err != cudaSuccess) return err;
+  bq_bounds_kernel<<<min((items + 255) / 256, 264), 256, 0, stream>>>(xyz, mask, items, bounds);
+  return cudaGetLastError();
+}
 
-extern "C" {
+// the points a cluster of P points a thread holds
+__host__ int fps_capacity(int p) { return kFpsCtas * kFpsWarps * 32 * p; }
 
-// points (b, n, 3) f32, mask (b, n) bool -> out (b, ns) int32. n must be at
-// most 16 x 1024 x 16 points a scan.
-int toda_fps(const float* points, const uint8_t* mask, int32_t* out, int b, int n, int ns,
-             cudaStream_t stream) {
-  if (b <= 0 || ns <= 0) return 0;
-  const int per_cta = (n + kFpsCtas - 1) / kFpsCtas;
-  if (n <= 0 || per_cta > kFpsThreads * kFpsPerThread) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)per_cta * 3 * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(fps_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(fps_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (err != cudaSuccess) return (int)err;
+// the sort's key bits for b scans: the code and the scan above it
+__host__ int fps_key_bits(int b) {
+  int bits = kFpsCodeBits;
+  while ((1ll << (bits - kFpsCodeBits)) < b) ++bits;
+  return bits;
+}
+
+template <int P>
+__host__ cudaError_t launch_fps(const int4* cand, const uint8_t* mask, int32_t* out, int b, int n,
+                                int ns, int mode, cudaStream_t stream) {
+  const size_t smem = (size_t)kFpsWarps * 32 * P * 3 * sizeof(float);
+  auto kernel = fps_kernel<P>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(b * kFpsCtas);
-  cfg.blockDim = dim3(kFpsThreads);
+  cfg.blockDim = dim3(kFpsWarps * 32);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
@@ -540,14 +718,51 @@ int toda_fps(const float* points, const uint8_t* mask, int32_t* out, int b, int 
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, fps_kernel, points, mask, out, n, ns);
+  err = cudaLaunchKernelEx(&cfg, kernel, cand, mask, out, n, ns, mode);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Bytes of the workspace toda_fps needs for b scans of n points.
+size_t toda_fps_workspace(int b, int n) {
+  return carve<unsigned long long>(nullptr, b * n, fps_key_bits(b)).total;
+}
+
+// points (b, n, 3) f32, mask (b, n) bool -> out (b, ns) int32, n at most
+// 2**18 (the key's index bits). One call sorts the points (bounds, keys, a
+// CUB radix sort, pack) and runs fps_kernel, in work (toda_fps_workspace(b,
+// n) bytes). Mode 0 is FPS (1 and 2 are the measurement's splits).
+int toda_fps(const float* points, const uint8_t* mask, int32_t* out, void* work,
+             size_t work_bytes, int b, int n, int ns, int mode, cudaStream_t stream) {
+  if (b <= 0 || ns <= 0) return 0;
+  if (n <= 0 || n > fps_capacity(kFpsLargeP) || (int64_t)b * n >= (1ll << 31) || mode < 0 ||
+      mode > 2)
+    return (int)cudaErrorInvalidValue;
+  const int items = b * n, key_bits = fps_key_bits(b);
+  SortWork<unsigned long long> w = carve<unsigned long long>(work, items, key_bits);
+  if (w.total > work_bytes) return (int)cudaErrorInvalidValue;
+  cudaError_t err = bounds_of(points, mask, items, w.bounds, stream);
   if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  const int blocks = (items + 255) / 256;
+  fps_keys_kernel<<<blocks, 256, 0, stream>>>(points, mask, w.bounds, b, n, w.keys_in,
+                                              w.vals_in);
+  err = cub::DeviceRadixSort::SortPairs(w.sort_tmp, w.sort_bytes, w.keys_in, w.keys, w.vals_in,
+                                        w.order, items, 0, key_bits, stream);
+  if (err != cudaSuccess) return (int)err;
+  bq_pack_kernel<<<blocks, 256, 0, stream>>>(points, w.order, items, w.cand);
+  err = n <= fps_capacity(kFpsSmallP)
+            ? launch_fps<kFpsSmallP>(w.cand, mask, out, b, n, ns, mode, stream)
+            : launch_fps<kFpsLargeP>(w.cand, mask, out, b, n, ns, mode, stream);
+  return (int)err;
 }
 
 // Bytes of the workspace toda_ball_query needs for b scans of n candidates.
 size_t toda_ball_query_workspace(int b, int n) {
-  return carve(nullptr, b * n).total;
+  return carve<int>(nullptr, b * n, kBqKeyBits).total;
 }
 
 // xyz (b, n, 3) f32 + xmask (b, n) bool, qxyz (b, m, 3) f32 + qmask (b, m)
@@ -562,13 +777,11 @@ int toda_ball_query(const float* xyz, const uint8_t* xmask, const float* qxyz,
   if (nq <= 0) return 0;
   const int items = b * n;
   if (ns <= 0 || ns > 128 || n <= 0 || cap < 2) return (int)cudaErrorInvalidValue;
-  BqWork w = carve(work, items);
+  SortWork<int> w = carve<int>(work, items, kBqKeyBits);
   if (w.total > work_bytes) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaMemsetAsync(w.bounds, 0x7f, 3 * sizeof(int), stream);
-  if (err == cudaSuccess) err = cudaMemsetAsync(w.bounds + 3, 0x80, 3 * sizeof(int), stream);
+  cudaError_t err = bounds_of(xyz, xmask, items, w.bounds, stream);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (items + 255) / 256;
-  bq_bounds_kernel<<<min(blocks, 264), 256, 0, stream>>>(xyz, xmask, items, w.bounds);
   bq_keys_kernel<<<blocks, 256, 0, stream>>>(xyz, xmask, w.bounds, side_min, cap, b, n,
                                              w.keys_in, w.vals_in);
   err = cub::DeviceRadixSort::SortPairs(w.sort_tmp, w.sort_bytes, w.keys_in, w.keys, w.vals_in,

@@ -12,10 +12,15 @@ FPS (4095 dependent steps) and a (chunk, N) distance matrix for the ball
 query. On the H100 both are CUDA kernels (``csrc/pointnet2.cu``, whose
 header says how each is built and what bounds it), because the plain
 versions cost ~25k launches a batch (FPS) and gigabytes of distance
-matrices (ball query). The ball query bins the candidates into a grid of
-cells at least the radius wide first (``ball_query_grid`` is the binning's
-plain version), so a query tests only the candidates of its 27 cells. Both
-give indices equal to their plain versions: the squared distance is
+matrices (ball query). Both bin their points first. The ball query sorts
+the candidates into a grid of cells at least the radius wide
+(``ball_query_grid`` is the binning's plain version), so a query tests only
+the candidates of its 27 cells. FPS sorts each scan by Morton code
+(``fps_sort_keys``) and keeps the bounding box of each group of consecutive
+sorted points, so a step updates only the groups whose box lies within
+their running distance of the sample (``farthest_point_sampling_buckets``
+is that algorithm in PyTorch, with the proof that a skip changes nothing).
+Both give indices equal to their plain versions: the squared distance is
 ``(dx*dx + dy*dy) + dz*dz`` in f32, rounded after each operation, the
 radius test ``d2 < float32(radius**2)``, and argmax ties go to the lower
 index.
@@ -34,13 +39,18 @@ from . import _build
 
 BIG = 1e9
 LAUNCHES = {"farthest_point_sampling": 0, "ball_query": 0}
-# FPS (pointnet2.cu fps_kernel): a scan is one cluster of FPS_CTAS blocks of
-# FPS_THREADS threads; a block keeps its slice of the scan's points in shared
-# memory and each thread up to FPS_PER_THREAD running distances in registers
+# FPS (pointnet2.cu fps_kernel): a scan is one cluster of FPS_CTAS blocks
+# over its points in Morton order (``fps_sort_keys``); a thread keeps a group
+# of consecutive sorted points with their bounding box and skips a step's
+# update where the box proves that no distance changes. A point's key packs
+# its running distance, FPS_IDX_BITS of its inverted index and FPS_POS_BITS
+# of its slot in its block (``fps_key``), so N is at most FPS_MAX_POINTS.
 FPS_CTAS = 16
-FPS_THREADS = 1024
-FPS_PER_THREAD = 16
-FPS_MAX_POINTS = FPS_CTAS * FPS_THREADS * FPS_PER_THREAD
+FPS_IDX_BITS = 18
+FPS_POS_BITS = 14
+FPS_MAX_POINTS = 2 ** FPS_IDX_BITS
+FPS_CODE_BITS = 31  # a scan's sort code: 30 Morton bits and the invalid flag
+FPS_CELLS = 1024  # cells an axis of the sort's grid
 # BQ (pointnet2.cu ball_query_grid_kernel): a warp keeps a query's nsample
 # smallest in-ball indices, up to 4 a lane; the grid's cell side is at least
 # the radius times 1 + BQ_CELL_MARGIN, with at most BQ_MAX_CELLS cells an
@@ -56,8 +66,10 @@ def _lib():
     lib = _build.library("pointnet2.cu")
     if not _bound:
         p, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.toda_fps.argtypes = [p, p, p, i32, i32, i32, p]
+        lib.toda_fps.argtypes = [p, p, p, p, ctypes.c_size_t, i32, i32, i32, i32, p]
         lib.toda_fps.restype = i32
+        lib.toda_fps_workspace.argtypes = [i32, i32]
+        lib.toda_fps_workspace.restype = ctypes.c_size_t
         lib.toda_ball_query_workspace.argtypes = [i32, i32]
         lib.toda_ball_query_workspace.restype = ctypes.c_size_t
         lib.toda_ball_query.argtypes = [p, p, p, p, p, p, p, ctypes.c_size_t, i32, i32, i32, f32,
@@ -116,11 +128,153 @@ def farthest_point_sampling_plain(points, mask, num_samples):
     return sel.to(torch.int32)
 
 
+def fps_key(dist, index):
+    """FPS's key of points with running distances ``dist`` (f32) and
+    indices ``index`` (< 2**FPS_IDX_BITS) in their scan: the kernel's u64
+    key less 2**63, as int64, which keeps its order. The high 32 bits map
+    the f32 to an unsigned int in its order (flip every bit of a negative,
+    the sign bit of the rest), the low ones hold ``2**FPS_IDX_BITS - 1 -
+    index`` above FPS_POS_BITS, where the kernel keeps the point's slot in
+    its block (0 here: a scan's indices are unique, so the slot never
+    decides). So the max of the keys is the argmax of the distances with
+    the lowest index among equal ones. -0.0 orders below 0.0; a running
+    distance is never -0.0 (the initial 1e9 and a sum of squares)."""
+    bits = dist.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    hi = torch.where(bits >= 2 ** 31, bits ^ 0xFFFFFFFF, bits | 2 ** 31)
+    low = (2 ** FPS_IDX_BITS - 1 - torch.as_tensor(index).to(torch.int64)) << FPS_POS_BITS
+    return ((hi - 2 ** 31) << 32) | low
+
+
+def fps_key_index(key):
+    """The index in its scan of the point a key (``fps_key``) holds."""
+    return 2 ** FPS_IDX_BITS - 1 - ((key & 0xFFFFFFFF) >> FPS_POS_BITS)
+
+
+def _spread3(v):
+    """Every third bit of v's low 10 bits (Morton interleave), int64."""
+    v = v & 0x3FF
+    v = (v | (v << 16)) & 0x030000FF
+    v = (v | (v << 8)) & 0x0300F00F
+    v = (v | (v << 4)) & 0x030C30C3
+    return (v | (v << 2)) & 0x09249249
+
+
+def fps_sort_keys(points, mask):
+    """The FPS kernel's sort keys (``fps_keys_kernel``, in the same f32
+    operations), (B, N) int64: the scan above FPS_CODE_BITS, then the Morton
+    code of the point's cell in a FPS_CELLS**3 grid over the valid points'
+    bounds (over all scans), cell ``floor((x - lo) * (FPS_CELLS / max(hi -
+    lo, 1e-30)))`` clamped to the grid; an invalid point's code, 2**30, lies
+    past every cell. The kernel sorts them stably, so points of one cell
+    keep their index order."""
+    b = points.shape[0]
+    valid = mask[..., None]
+    lo = torch.where(valid, points, float("inf")).amin(dim=(0, 1))
+    hi = torch.where(valid, points, float("-inf")).amax(dim=(0, 1))
+    scale = FPS_CELLS / torch.clamp(hi - lo, min=1e-30)
+    u = torch.clamp(torch.floor((points - lo) * scale), 0, FPS_CELLS - 1).long()
+    code = (_spread3(u[..., 0]) << 2) | (_spread3(u[..., 1]) << 1) | _spread3(u[..., 2])
+    code = torch.where(mask, code, 2 ** 30)
+    return (torch.arange(b, device=points.device)[:, None] << FPS_CODE_BITS) | code
+
+
+def fps_boxes(points, valid):
+    """Bounding boxes of groups of points: points (..., G, 3) f32 and their
+    validity (..., G) -> lo, hi (..., 3) over the valid ones (+inf and -inf
+    where none is)."""
+    v = valid[..., None]
+    return (torch.where(v, points, float("inf")).amin(dim=-2),
+            torch.where(v, points, float("-inf")).amax(dim=-2))
+
+
+def fps_lower_bound(lo, hi, s):
+    """``sq_dist`` from s to the nearest point of the box [lo, hi] (the
+    sample clamped to the box, then the same rounded operations): never
+    above the f32 ``sq_dist`` from s to a point of the box (proof in
+    ``farthest_point_sampling_buckets``); +inf for an empty box."""
+    return sq_dist(torch.minimum(torch.maximum(s, lo), hi), s)
+
+
+def farthest_point_sampling_buckets(points, mask, num_samples, group=24):
+    """The FPS kernel's algorithm in plain PyTorch, equal to
+    ``farthest_point_sampling_plain``: points in ``fps_sort_keys`` order, in
+    groups of ``group`` consecutive ones (a kernel thread's), each with the
+    bounding box of its valid points and its best key (``fps_key``). A step
+    computes each group's ``fps_lower_bound`` to the last sample and updates
+    only the groups whose bound is below their largest running distance;
+    the others keep their distances and best; the sample is the max key.
+
+    Why a skip changes nothing: let p lie in the box [lo, hi] and c be the
+    sample s clamped to it. Along each axis, p - s and c - s have the same
+    sign (or c - s = 0) and |p - s| >= |c - s| in real numbers, so their f32
+    differences obey |fl(p - s)| >= |fl(c - s)|: rounding to nearest is
+    monotone. Squares, then the two sums (all >= 0) are monotone too, so
+    lb = sq_dist(c, s) <= sq_dist(p, s) as both are rounded. If lb >= the
+    group's largest running distance d, every member's d' <= d <= lb <=
+    sq_dist(p, s), so min(d', sq_dist(p, s)) = d'. Invalid members (at
+    -1e9) never change; the box holds the valid ones only.
+
+    Returns (B, num_samples) int32 indices and the share of group updates
+    over the steps after the first (the work the kernel does)."""
+    b, n, _ = points.shape
+    dev = points.device
+    order = torch.argsort(fps_sort_keys(points, mask), dim=1, stable=True)
+    g = -(-n // group)
+    pad = g * group - n
+    p = torch.nn.functional.pad(torch.gather(points, 1, order[..., None].expand(-1, -1, 3)),
+                                (0, 0, 0, pad)).view(b, g, group, 3)
+    v = torch.nn.functional.pad(torch.gather(mask, 1, order), (0, pad)).view(b, g, group)
+    present = torch.nn.functional.pad(torch.ones_like(mask), (0, pad)).view(b, g, group)
+    index = torch.nn.functional.pad(order, (0, pad)).view(b, g, group)
+    lo, hi = fps_boxes(p, v)
+    dist = torch.where(v, BIG, -BIG).to(torch.float32)
+    absent = torch.iinfo(torch.int64).min
+
+    def best_of(d):
+        return torch.where(present, fps_key(d, index), absent).amax(dim=-1)
+
+    best = best_of(dist)  # step 0: the first valid point
+    rows = torch.arange(b, device=dev)
+    sel = torch.zeros((b, num_samples), dtype=torch.int64, device=dev)
+    updates = 0
+    for i in range(num_samples):
+        sel[:, i] = fps_key_index(best.amax(dim=1))
+        if i + 1 == num_samples:
+            break
+        s = points[rows, sel[:, i]][:, None, None]  # (B, 1, 1, 3)
+        lb = fps_lower_bound(lo, hi, s[:, 0])  # (B, G)
+        top = torch.where(present, dist, float("-inf")).amax(dim=-1)
+        upd = lb < top
+        dist = torch.where(upd[..., None], torch.minimum(dist, sq_dist(p, s)), dist)
+        best = torch.where(upd, best_of(dist), best)
+        updates += int(upd.sum())
+    share = updates / max(1, b * g * (num_samples - 1))
+    return sel.to(torch.int32), share
+
+
+def fps_run(points, mask, num_samples, mode=0):
+    """One launch of the FPS kernel's C entry (``toda_fps``) on CUDA
+    tensors, not counted in LAUNCHES: the wrapper's call with mode 0; the
+    others split its time for measurement (mode 1 skips the distance
+    update, mode 2 runs empty steps)."""
+    b, n, _ = points.shape
+    lib = _lib()
+    work = torch.empty(lib.toda_fps_workspace(b, n), dtype=torch.uint8, device=points.device)
+    out = torch.empty((b, num_samples), dtype=torch.int32, device=points.device)
+    err = lib.toda_fps(points.data_ptr(), mask.data_ptr(), out.data_ptr(), work.data_ptr(),
+                       work.numel(), b, n, num_samples, mode, _stream(points))
+    _build.check(err, "farthest_point_sampling")
+    return out
+
+
 def farthest_point_sampling(points, mask, num_samples):
-    """FPS of ``num_samples`` indices per scan (see the plain version).
+    """FPS of ``num_samples`` indices per scan (see the plain version). On
+    the card one call sorts the points (bounds, Morton keys, a radix sort)
+    and runs the FPS kernel, in one workspace.
 
     Args:
-        points: (B, N, 3) float32, contiguous.
+        points: (B, N, 3) float32, contiguous; N at most FPS_MAX_POINTS on
+            the card.
         mask: (B, N) bool; invalid points are never taken while a valid
             point is left.
         num_samples: samples per scan.
@@ -131,13 +285,10 @@ def farthest_point_sampling(points, mask, num_samples):
     _check_xyz(points, "farthest_point_sampling: points")
     b, n, _ = points.shape
     _check_mask(mask, (b, n), points.device, "farthest_point_sampling: mask")
-    if n > FPS_MAX_POINTS or num_samples < 1:
-        raise ValueError(f"farthest_point_sampling: N {n} > {FPS_MAX_POINTS} or "
-                         f"num_samples {num_samples} < 1")
-    out = torch.empty((b, num_samples), dtype=torch.int32, device=points.device)
-    err = _lib().toda_fps(points.data_ptr(), mask.data_ptr(), out.data_ptr(), b, n,
-                          num_samples, _stream(points))
-    _build.check(err, "farthest_point_sampling")
+    if not 1 <= n <= FPS_MAX_POINTS or num_samples < 1 or b * n >= 2 ** 31:
+        raise ValueError(f"farthest_point_sampling: N {n} not in 1..{FPS_MAX_POINTS}, "
+                         f"num_samples {num_samples} < 1 or B * N >= 2**31")
+    out = fps_run(points, mask, num_samples)
     LAUNCHES["farthest_point_sampling"] += 1
     return out
 
